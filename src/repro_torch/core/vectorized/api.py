@@ -1,0 +1,202 @@
+"""One front door for the port's vectorized simulator — the counterpart
+of ``repro.core.vectorized.api``.
+
+    from repro_torch.core.vectorized.api import build, SimConfig
+
+    dyn = build(spec, n_workers=4, cores=2, scheduler="greedy",
+                dynamic=True, config=SimConfig(msd=1.0))
+    res = dyn(est_dur, est_size)                       # -> SimResult
+
+    sched = build(spec, n_workers=4, cores=2, scheduler="blevel")
+    a, p = sched(est_dur, est_size, bandwidth, seed)   # static schedule
+
+Every entry point takes ``device`` (default ``"cuda"``) and raises when
+CUDA is requested and no card is present; the CPU runs only when asked
+for.  ``spec=None`` returns the late-bound bucket form (the spec becomes
+the first argument).  Arguments may carry a leading row axis — one row
+per simulation — in place of the reference's ``jax.vmap``.
+
+Not ported yet (they raise ``NotImplementedError``): the static
+simulator (``build`` with ``scheduler=None`` and ``dynamic=False``) and
+the sharded grid engine (``engine="sharded"``; its ``devices``,
+``stream_rows`` and ``cache_dir`` options are unknown here and raise
+``TypeError``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ...device import resolve_device
+from . import scheduling as _scheduling
+from . import sim as _sim
+from .specs import GraphSpec, as_bucketed, frontier_caps_for_spec
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """Frozen bundle of every simulator option ``build`` accepts.  The
+    fields mirror the reference's ``SimConfig``; ``msd`` /
+    ``decision_delay`` / ``imode`` / ``seed`` become the *default* call
+    arguments of a bound dynamic run.  ``waterfill_impl`` is ``"auto"``
+    (kernel on the card, plain version on the CPU), ``"torch"`` or
+    ``"cuda"``; ``check_every`` is how many simulator steps pass between
+    the host's checks that a row is still live.  ``engine`` is
+    ``"vmap"`` (one batched call); ``"sharded"`` is not ported and
+    raises."""
+
+    flow_slots: bool | None = None
+    frontier: bool | None = None
+    frontier_caps: tuple[int, int] | None = None
+    waterfill_impl: str = "auto"
+    flow_rounds: int = 4
+    max_steps: int | None = None
+    msd: float = 0.0
+    decision_delay: float = 0.0
+    imode: str = "exact"
+    seed: int = 0
+    engine: str = "vmap"
+    check_every: int = 16
+
+    def replace(self, **kwargs) -> "SimConfig":
+        return dataclasses.replace(self, **kwargs)
+
+
+def _merge_config(config, opts) -> SimConfig:
+    cfg = SimConfig() if config is None else config
+    if opts:
+        unknown = set(opts) - {f.name for f in dataclasses.fields(SimConfig)}
+        if unknown:
+            raise TypeError(f"build() got unknown option(s) "
+                            f"{sorted(unknown)}; SimConfig fields are "
+                            f"{sorted(f.name for f in dataclasses.fields(SimConfig))}")
+        cfg = cfg.replace(**opts)
+    if cfg.engine not in ("vmap", "sharded"):
+        raise TypeError(f"unknown engine {cfg.engine!r}; SimConfig.engine "
+                        f"is 'vmap' or 'sharded'")
+    if cfg.engine == "sharded":
+        raise NotImplementedError(
+            "the sharded grid engine (engine='sharded') is not ported to "
+            "repro_torch yet (ROADMAP: port engine.py)")
+    return cfg
+
+
+def build(spec=None, *, n_workers: int, cores=None, scheduler=None,
+          netmodel: str = "maxmin", dynamic: bool = False,
+          max_cores: int | None = None, config: SimConfig | None = None,
+          device="cuda", **opts):
+    """Build a simulator or scheduler callable on ``device``.
+
+    Dispatch:
+
+    * ``dynamic=True`` — the **dynamic simulator** for ``scheduler``
+      (default ``"blevel"``): ``run(est_durations, est_sizes, msd,
+      decision_delay, bandwidth, seed, cores) -> SimResult``.
+    * ``scheduler`` given with ``dynamic=False`` — the **static
+      schedule function**: ``schedule(est_durations, est_sizes,
+      bandwidth, seed, cores) -> (assignment, priority)`` over rows.
+    * ``scheduler=None`` with ``dynamic=False`` — the static simulator,
+      not ported yet: raises ``NotImplementedError``.
+
+    ``spec`` may be a ``GraphSpec``/``BucketedGraphSpec`` (bound now)
+    or ``None`` (bucket form: the callable takes the spec first).
+    Options come from ``config`` and/or keyword overrides; unknown
+    options raise ``TypeError``."""
+    dev = resolve_device(device)
+    cfg = _merge_config(config, opts)
+    if scheduler is None and not dynamic:
+        raise NotImplementedError(
+            "the static simulator (build with scheduler=None, "
+            "dynamic=False) is not ported to repro_torch yet (ROADMAP: "
+            "port make_bucket_simulator, sim.py:278-764)")
+    bspec = None if spec is None else as_bucketed(spec)
+    if (bspec is not None and cfg.frontier is not False
+            and cfg.frontier_caps is None):
+        # the spec is concrete, so widen the shape-derived caps to the
+        # root count — all roots are ready at t=0
+        cfg = cfg.replace(frontier_caps=frontier_caps_for_spec(bspec))
+    if bspec is not None and cores is not None:
+        # host-side guard: a task that fits no worker would stall the
+        # event loop
+        _sim._check_cpus_fit([bspec],
+                             _scheduling._resolve_cores(n_workers, cores),
+                             "build")
+
+    if not dynamic:
+        fn = _scheduling.make_bucket_scheduler(n_workers, cores, scheduler,
+                                               max_cores)
+
+        def schedule(bspec_, est_dur, est_size, bandwidth, seed=0,
+                     cores=None):
+            est_dur = _as_rows_tensor(est_dur, dev)
+            est_size = _as_rows_tensor(est_size, dev)
+            unbatched = est_dur.dim() == 1
+            if unbatched:
+                est_dur, est_size = est_dur[None], est_size[None]
+            spec_rows = _sim._rows_spec(bspec_, est_dur.shape[0], dev)
+            aw, prio = fn(spec_rows, est_dur, est_size, bandwidth, seed,
+                          cores)
+            return (aw[0], prio[0]) if unbatched else (aw, prio)
+
+        if bspec is None:
+            return schedule
+        return lambda est_dur, est_size, bandwidth, seed=0, cores=None: \
+            schedule(bspec, est_dur, est_size, bandwidth, seed, cores)
+
+    brun = _sim.make_bucket_dynamic_simulator(
+        n_workers, cores, scheduler or "blevel", netmodel,
+        cfg.flow_rounds, cfg.max_steps, max_cores=max_cores,
+        flow_slots=cfg.flow_slots, frontier=cfg.frontier,
+        frontier_caps=cfg.frontier_caps,
+        waterfill_impl=cfg.waterfill_impl, device=dev,
+        check_every=cfg.check_every)
+    if bspec is None:
+        return brun
+
+    def run(est_durations, est_sizes, msd=cfg.msd,
+            decision_delay=cfg.decision_delay,
+            bandwidth=100 * 1024 * 1024.0, seed=cfg.seed, cores=None):
+        return brun(bspec, est_durations, est_sizes, msd, decision_delay,
+                    bandwidth, seed, cores)
+    return run
+
+
+def _as_rows_tensor(x, dev):
+    if torch.is_tensor(x):
+        return x.to(dev).float()
+    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+
+def make_grid_runner(entries, scheduler, n_workers, cores, *,
+                     netmodel: str = "maxmin", max_steps: int | None = None,
+                     shape=None, batch=None, est_cache=None,
+                     config: SimConfig | None = None, device="cuda",
+                     **opts):
+    """Front door over the bucket grid runner: positional arguments
+    match ``BucketedGridRunner``; options ride the same config/override
+    mechanics as ``build``.  Only ``engine="vmap"`` is ported — one
+    batched call over all ``[K, B, N]`` rows."""
+    dev = resolve_device(device)
+    cfg = _merge_config(config, opts)
+    if cfg.flow_slots is False or cfg.frontier is False:
+        raise NotImplementedError(
+            "flow_slots=False / frontier=False are not ported to "
+            "repro_torch")
+    return _sim.BucketedGridRunner(
+        entries, scheduler, n_workers, cores, netmodel=netmodel,
+        max_steps=cfg.max_steps if max_steps is None else max_steps,
+        shape=shape, batch=batch, est_cache=est_cache, device=dev,
+        waterfill_impl=cfg.waterfill_impl, flow_rounds=cfg.flow_rounds,
+        frontier_caps=cfg.frontier_caps, check_every=cfg.check_every)
+
+
+def build_for_graph(graph, **kwargs):
+    """``build`` for a ``TaskGraph``: encodes the graph first."""
+    from .specs import encode_graph
+    return build(encode_graph(graph), **kwargs)
+
+
+__all__ = ["SimConfig", "build", "build_for_graph", "make_grid_runner",
+           "GraphSpec"]
