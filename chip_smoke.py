@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py                 # every phase, one card
 
-Drives the port's main path — the paper survey's batched dynamic
-simulator with the max-min waterfill kernel — through the entry points
-a user calls, and checks it.  Phases, each printing one JSON line:
+Drives the port's two main paths through the entry points a user calls,
+and checks them: the paper survey's batched dynamic simulator with the
+max-min waterfill kernel (K1), and serving Hymba-1.5B with the flash
+attention (K2) and Mamba-2 SSD scan (K3) kernels.  Phases, each
+printing one JSON line:
 
 1. ``env``: the card's name and power limit.
 2. ``build``: compiles every CUDA kernel of the port from
@@ -24,7 +26,25 @@ a user calls, and checks it.  Phases, each printing one JSON line:
    greedy on maxmin, through the plain version and the kernel in turns
    (plain, kernel, kernel, plain) on the card; the results must agree
    and the kernel's launch count must be positive.
-7. ``kernels``: each kernel with its launches on the main path.
+7. ``kernel_flash_attention``: K2 against its plain version on the card
+   (float32 and bfloat16) at Hymba's prefill shape (B 4, Hq 25, Hkv 5,
+   Sq 1536, Skv 1568, kv_len 1536, window 1024 and 0, the KV cache's
+   strided layout), its decode shape (Sq 1), gemma3's head dim 256, an
+   MQA case (one kv head) and a non-causal case; fails above atol/rtol
+   1e-5 (float32) or 2e-2 (bfloat16).  Times the kernel, the plain
+   version and ``scaled_dot_product_attention`` with the same boolean
+   mask (the yardstick only; the port never calls it).
+8. ``kernel_ssd``: K3 against ``ssd_chunked`` at Hymba's prefill shape
+   (Bt 4, L 1536, H 50, P 64, N 16) and mamba2-130m's (H 24, N 128), and
+   its final state against the sequential recurrence; fails above
+   atol/rtol 1e-4.
+9. ``serve_hymba``: ``repro_torch.launch.serve`` at full width in
+   bfloat16 (batch 4, prompt 1536, gen 32) through the kernels, with the
+   launches of K2 (32 layers x 33 forward passes) and K3 (32); then the
+   same prompt in float32, prefill and 4 teacher-forced decode steps,
+   through the kernels and through the plain versions on the card:
+   logits within atol/rtol 1e-3 and equal greedy tokens.
+10. ``kernels``: each kernel with its launches on the main path.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}``.
@@ -34,6 +54,7 @@ the reference package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -44,7 +65,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 PHASES = ("env", "build", "kernel_waterfill", "golden", "survey_mini",
-          "survey_full_width", "kernels")
+          "survey_full_width", "kernel_flash_attention", "kernel_ssd",
+          "serve_hymba", "kernels")
 
 # the recorded dynamic rows of BENCH_PR7.json (reference package, CPU)
 GOLDEN = {
@@ -61,10 +83,19 @@ RTOL = 1e-5
 # non-tensor float32 operations/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# dense bfloat16 tensor-core operations/s (same data sheet)
+BF16_OPS_PER_S = 989e12
+# the device of the LM phases
+DEV = "cuda"
 
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+# the card's nvidia-smi name and power limit, set by phase_env; the LM
+# phases carry it on their lines
+CARD = None
 
 
 def nvidia_smi_line():
@@ -112,7 +143,8 @@ def t2048_graph(layers=8, width=72, fanin=4):
 # ---------------------------------------------------------------- phases
 def phase_env():
     import torch
-    line = nvidia_smi_line()
+    global CARD
+    line = CARD = nvidia_smi_line()
     emit("env", device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=line,
          torch=torch.__version__, cuda=torch.version.cuda,
@@ -383,6 +415,343 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
     return main_path_launches
 
 
+# ------------------------------------------------------- LM kernels, serve
+def _bound(nbytes, ops, ops_per_s):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _close(got, want, atol, rtol):
+    """(max abs error, every element within atol + rtol * |want|)."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    ok = bool((err <= atol + rtol * want.abs()).all()) \
+        and bool(got.isfinite().all())
+    return float(err.max()), ok
+
+
+# name, B, Hq, Hkv, Sq, Skv, D, kv_len, window, causal, cache layout
+ATTN_CASES = (
+    ("prefill_w1024", 4, 25, 5, 1536, 1568, 64, 1536, 1024, True, True),
+    ("prefill_w0", 4, 25, 5, 1536, 1568, 64, 1536, 0, True, True),
+    ("decode_w1024", 4, 25, 5, 1, 1568, 64, 1552, 1024, True, True),
+    ("decode_w0", 4, 25, 5, 1, 1568, 64, 1552, 0, True, True),
+    ("gemma3_d256", 2, 4, 1, 512, 512, 256, 512, 256, True, False),
+    ("mqa_d32", 2, 8, 1, 300, 300, 32, 300, 0, True, False),
+    ("noncausal_d16", 2, 4, 2, 100, 100, 16, 100, 0, False, False),
+)
+ATTN_PATH = ("prefill_w1024", "prefill_w0", "decode_w1024", "decode_w0")
+
+
+def _attn_inputs(case, dtype, seed):
+    import torch
+    _, B, Hq, Hkv, Sq, Skv, D, _, _, _, cache_layout = case
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=DEV).to(dtype)
+
+    q = randn(B, Sq, Hq, D).transpose(1, 2)
+    if cache_layout:     # the model's KV cache [B, S, Hkv, D], transposed
+        k = randn(B, Skv, Hkv, D).transpose(1, 2)
+        v = randn(B, Skv, Hkv, D).transpose(1, 2)
+    else:
+        k, v = randn(B, Hkv, Skv, D), randn(B, Hkv, Skv, D)
+    return q, k, v
+
+
+def _attn_work(case, itemsize):
+    """(bytes, operations) this call needs: q read and o written once,
+    each key and value that some query sees read once; 4 D operations
+    per visible (query, key) pair."""
+    from repro_torch.kernels.ref import attention_mask
+    _, B, Hq, Hkv, Sq, Skv, D, kv_len, window, causal, _ = case
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          kv_len=kv_len, device=DEV)
+    keys = int(mask.any(dim=0).sum())
+    nbytes = (2 * B * Hq * Sq * D + 2 * B * Hkv * keys * D) * itemsize
+    ops = 4 * D * int(mask.sum()) * B * Hq
+    return nbytes, ops, mask
+
+
+def phase_kernel_flash_attention(seed=0):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    checks, timings = [], {}
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(ATTN_CASES):
+            name, B, Hq, Hkv, Sq, Skv, D, kv_len, window, causal, _ = case
+            q, k, v = _attn_inputs(case, dtype, seed + i)
+            kw = dict(causal=causal, window=window, kv_len=kv_len)
+            got = flash_attention(q, k, v, **kw)
+            want = ref.attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err, ok = _close(got.float(), want.float(), tol[dtype],
+                             tol[dtype])
+            worst = max(worst, err)
+            checks.append(dict(case=name, dtype=str(dtype)[6:], max_abs=err,
+                               tol=tol[dtype], ok=ok,
+                               out_dtype=str(got.dtype)[6:]))
+            if not ok or got.dtype != q.dtype:
+                emit("kernel_flash_attention", card=CARD, checks=checks,
+                     ok=False)
+                raise AssertionError(f"flash attention kernel disagrees "
+                                     f"with the plain version: {checks[-1]}")
+            if dtype != torch.bfloat16 or name not in ATTN_PATH:
+                continue
+            nbytes, ops, mask = _attn_work(case, q.element_size())
+            bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+            ke = k.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+            ve = v.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+            qc = q.contiguous()
+            iters = 20 if Sq > 1 else 200
+            k_ms = cuda_time_ms(lambda: flash_attention(q, k, v, **kw),
+                                iters=iters)
+            p_ms = cuda_time_ms(lambda: ref.attention_ref(q, k, v, **kw),
+                                iters=max(iters // 10, 3), warmup=2)
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                qc, ke, ve, attn_mask=mask), iters=iters)
+            lib_err = float((F.scaled_dot_product_attention(
+                qc, ke, ve, attn_mask=mask).float() - want.float())
+                .abs().max())
+            timings[name] = dict(case=name, dtype="bfloat16", ms=k_ms,
+                                 plain_ms=p_ms, library_ms=lib_ms,
+                                 library_max_abs=lib_err, bytes=nbytes,
+                                 ops=ops, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+    emit("kernel_flash_attention", card=CARD, checks=checks,
+         max_abs=worst, timing=list(timings.values()), ok=True)
+    return dict(max_abs_err=worst, path=timings["prefill_w1024"],
+                timing=timings)
+
+
+def _ssd_inputs(Bt, L, H, P, N, seed):
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=DEV)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=DEV)
+
+    return (randn(Bt, L, H, P), 0.001 + 0.099 * rand(Bt, L, H),
+            -(0.5 + 1.5 * rand(H)), randn(Bt, L, N), randn(Bt, L, N),
+            randn(H))
+
+
+def _ssd_work(Bt, L, H, P, N, Q=64):
+    """(bytes, operations): every input read once, y and the final state
+    written once; per (batch, head, chunk) the causal C Bᵀ and G (dt x)
+    products, the inter-chunk term, the state update and the skip."""
+    tri = Q * (Q + 1) // 2
+    per_chunk = 2 * tri * N + 2 * tri * P + 2 * Q * N * P \
+        + 2 * N * P * Q + 2 * N * P + 2 * Q * P
+    ops = per_chunk * Bt * H * (L // Q)
+    nbytes = 4 * (2 * Bt * L * H * P + Bt * L * H + 2 * H + 2 * Bt * L * N
+                  + Bt * H * N * P)
+    return nbytes, ops
+
+
+def phase_kernel_ssd(seed=0):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd import ssd_scan
+    out, worst, timings = [], 0.0, {}
+    for name, (Bt, L, H, P, N) in (("hymba", (4, 1536, 50, 64, 16)),
+                                   ("mamba2_130m", (4, 1536, 24, 64, 128))):
+        x, dt, A, B, C, D = _ssd_inputs(Bt, L, H, P, N, seed)
+        y, state = ssd_scan(x, dt, A, B, C, D, return_state=True)
+        y_ref = ref.ssd_chunked(x, dt, A, B, C, D)
+        st_ref = ref.ssd_final_state(x, dt, A, B)
+        torch.cuda.synchronize()
+        y_err, y_ok = _close(y, y_ref, 1e-4, 1e-4)
+        s_err, s_ok = _close(state, st_ref, 1e-4, 1e-4)
+        worst = max(worst, y_err, s_err)
+        nbytes, ops = _ssd_work(Bt, L, H, P, N)
+        bound_ms, bound_by = _bound(nbytes, ops, F32_OPS_PER_S)
+        k_ms = cuda_time_ms(lambda: ssd_scan(x, dt, A, B, C, D,
+                                             return_state=True), iters=20)
+        p_ms = cuda_time_ms(lambda: ref.ssd_chunked(x, dt, A, B, C, D),
+                            iters=3, warmup=1)
+        row = dict(case=name, Bt=Bt, L=L, H=H, P=P, N=N, y_max_abs=y_err,
+                   state_max_abs=s_err, ok=y_ok and s_ok, ms=k_ms,
+                   plain_ms=p_ms, library_ms=None, bytes=nbytes, ops=ops,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        out.append(row)
+        timings[name] = row
+        if not row["ok"]:
+            emit("kernel_ssd", card=CARD, rows=out, ok=False)
+            raise AssertionError(f"ssd kernel disagrees with the plain "
+                                 f"version: {row}")
+    emit("kernel_ssd", card=CARD, rows=out, max_abs=worst, ok=True)
+    return dict(max_abs_err=worst, path=timings["hymba"])
+
+
+def _profile(fn):
+    """Wall time, device busy time and the top device kernels and host
+    ops of one call of ``fn`` under ``torch.profiler`` (the profiler
+    slows the host, so the idle share is an upper bound)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    # device-side events only (kernels, copies): a host op's device time
+    # repeats the time of the kernels it launched
+    on_dev = [e for e in avg if e.device_type == DeviceType.CUDA]
+    on_host = [e for e in avg if e.device_type == DeviceType.CPU]
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    top_dev = sorted(on_dev, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:10]
+    top_host = sorted(on_host, key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:10]
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+                device_idle_share=1 - busy_ms / (wall * 1e3),
+                device_events=sum(e.count for e in on_dev),
+                top_device=[(e.key[:70], e.self_device_time_total / 1e3,
+                             e.count) for e in top_dev],
+                top_host=[(e.key[:70], e.self_cpu_time_total / 1e3,
+                           e.count) for e in top_host])
+
+
+def _profile_serve(model, prompts, forced, cache_len):
+    """Profiles of one prefill and of two decode steps (bf16 model)."""
+    from repro_torch.models import decode_step, prefill
+    state = {}
+
+    def run_prefill():
+        state["out"] = prefill(model, prompts, cache_len=cache_len)
+
+    def run_decode():
+        _, cache, pos = state["out"]
+        for i in range(forced.shape[1]):
+            _, cache, pos = decode_step(model, forced[:, i:i + 1], cache,
+                                        pos)
+
+    return dict(prefill=_profile(run_prefill),
+                decode_steps=forced.shape[1], decode=_profile(run_decode))
+
+
+def phase_serve_hymba(seed=0, gen=32, prompt_len=1536, forced=4,
+                      smoke=False):
+    import gc
+
+    import torch
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.kernels import SSD_LAUNCHES as SS
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, init_params, prefill
+    dev = torch.device(DEV)
+    argv = ["--arch", "hymba-1.5b", "--batch", "4", "--prompt-len",
+            str(prompt_len), "--gen", str(gen), "--seed", str(seed),
+            "--device", DEV] + (["--smoke"] if smoke else [])
+    # the main path's own counts: zeroed just before, read just after
+    FA.reset()
+    SS.reset()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(flash_attention=FA.count, ssd=SS.count)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = res["cfg"]
+    del res["model"]
+    # a second, warm run of the same entry point (the first one pays for
+    # first-use set-up: library handles, module loading), then a profile
+    warm = serve.main(argv)
+    profile = _profile_serve(warm["model"], warm["prompts"],
+                             warm["tokens"][:, :2], prompt_len + gen)
+    warm = dict({k: warm[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                      "tokens_per_s")},
+                same_tokens=bool(torch.equal(warm["tokens"], res["tokens"])))
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dict(flash_attention=cfg.n_layers * (gen + 1), ssd=cfg.n_layers)
+    tokens, prompts = res["tokens"], res["prompts"]
+    bf16 = dict(dtype=cfg.dtype, batch=4, prompt=prompt_len, gen=gen,
+                params=cfg.param_count(),
+                prefill_ms=res["prefill_ms"],
+                decode_ms_per_token=res["decode_ms_per_token"],
+                tokens_per_s=res["tokens_per_s"], warm_run=warm,
+                profile=profile, peak_mem_gb=peak_gb,
+                launches=launches, launches_expected=want,
+                tokens_in_vocab=bool((tokens >= 0).all()
+                                     and (tokens < cfg.vocab_size).all()),
+                first_tokens=tokens[0, :8].tolist())
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launches != want or not bf16["tokens_in_vocab"] \
+            or tokens.shape != (4, gen):
+        emit("serve_hymba", card=CARD, bf16=bf16, ok=False)
+        raise AssertionError(f"serve_hymba: bf16 run wrong: {bf16}")
+
+    # float32: the same prompt, kernels vs plain versions on the card
+    cfg32 = dataclasses.replace(cfg, dtype="float32", max_cache_len=0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = init_params(cfg32, g, device=dev)
+    teacher = tokens[:, :forced]
+    runs = {}
+    for impl in ("auto", "torch"):
+        FA.reset()
+        SS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, pos = prefill(model, prompts,
+                                     cache_len=prompt_len + forced, impl=impl)
+        outs = [logits]
+        for i in range(forced):
+            logits, cache, pos = decode_step(model, teacher[:, i:i + 1],
+                                             cache, pos, impl=impl)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        runs[impl] = dict(logits=outs, wall_s=time.perf_counter() - t0,
+                          launches=dict(flash_attention=FA.count,
+                                        ssd=SS.count))
+        del cache
+    steps = []
+    ok = True
+    for i, (a, b) in enumerate(zip(runs["auto"]["logits"],
+                                   runs["torch"]["logits"])):
+        err, close = _close(a, b, 1e-3, 1e-3)
+        same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        steps.append(dict(step=i, max_abs=err, close=close,
+                          greedy_equal=same,
+                          logit_absmax=float(b.abs().max())))
+        ok = ok and close and same
+    f32 = dict(dtype="float32", forced_steps=forced,
+               kernel_wall_s=runs["auto"]["wall_s"],
+               plain_wall_s=runs["torch"]["wall_s"],
+               kernel_launches=runs["auto"]["launches"],
+               plain_launches=runs["torch"]["launches"], steps=steps)
+    ok = ok and runs["torch"]["launches"] == dict(flash_attention=0, ssd=0) \
+        and runs["auto"]["launches"] == dict(
+            flash_attention=cfg32.n_layers * (forced + 1),
+            ssd=cfg32.n_layers)
+    emit("serve_hymba", card=CARD, bf16=bf16, f32=f32, ok=ok)
+    if not ok:
+        raise AssertionError("serve_hymba: the kernel path disagrees with "
+                             "the plain path in float32")
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -400,6 +769,10 @@ def main(argv=None):
               "run needs one card", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401 — fails outside a checkout of the repo
+    # float32 products in full float32 on the card (no TF32), as the
+    # plain versions and the reference compute them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
     smi = phase_env()
@@ -412,29 +785,43 @@ def main(argv=None):
         phase_golden()
     if "survey_mini" in phases:
         phase_survey_mini()
-    launches = None
+    launches = {}
     if "survey_full_width" in phases:
-        launches = phase_survey_full_width()
+        launches["waterfill"] = phase_survey_full_width()
+    fa = ss = None
+    if "kernel_flash_attention" in phases:
+        fa = phase_kernel_flash_attention()
+    if "kernel_ssd" in phases:
+        ss = phase_kernel_ssd()
+    if "serve_hymba" in phases:
+        launches.update(phase_serve_hymba())
     kernels = []
-    if wf is not None:
+    for name, res, src, replaces, lib in (
+            ("waterfill", wf, "waterfill.cu",
+             "src/repro/kernels/waterfill.py:30", False),
+            ("flash_attention", fa, "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:25", True),
+            ("ssd", ss, "ssd.cu", "src/repro/kernels/ssd.py:24", False)):
+        if res is None:
+            continue
         kernels.append(dict(
-            name="waterfill", route="cuda",
-            source="src/repro_torch/kernels/csrc/waterfill.cu",
-            replaces="src/repro/kernels/waterfill.py:30",
-            launches=launches if launches is not None else 0,
-            max_abs_err=wf["max_abs_err"], ms=wf["path"]["ms"],
-            plain_ms=wf["path"]["plain_ms"],
-            bound_ms=wf["path"]["bound_ms"],
-            bound_by=wf["path"]["bound_by"], library_ms=None))
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=replaces, launches=launches.get(name, 0),
+            max_abs_err=res["max_abs_err"], ms=res["path"]["ms"],
+            plain_ms=res["path"]["plain_ms"],
+            bound_ms=res["path"]["bound_ms"],
+            bound_by=res["path"]["bound_by"],
+            library_ms=res["path"]["library_ms"] if lib else None))
     if "kernels" in phases:
         emit("kernels", kernels=[dict(name=k["name"],
                                       launches=k["launches"],
                                       held_against_plain=True)
                                  for k in kernels],
              total_s=time.perf_counter() - t_start)
-        if launches is not None and launches <= 0:
-            raise AssertionError("the main path never launched the "
-                                 "waterfill kernel")
+        never = sorted(n for n, c in launches.items() if c <= 0)
+        if never:
+            raise AssertionError(f"the main path never launched {never}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,17 @@ version.  Sources live in ``csrc/``; ``_build`` compiles them with
 
 * ``waterfill`` — K1, batched max-min fair rates (replaces the TPU
   kernel ``repro/kernels/waterfill.py::_waterfill_kernel``); call
-  ``repro_torch.kernels.waterfill.waterfill``."""
+  ``repro_torch.kernels.waterfill.waterfill``.
+* ``flash_attention`` — K2, GQA attention with causal and sliding-window
+  masks (replaces ``repro/kernels/flash_attention.py::_flash_kernel``).
+* ``ssd`` — K3, the Mamba-2 SSD chunked scan (replaces
+  ``repro/kernels/ssd.py::_ssd_kernel``).
+
+``ops.attention`` and ``ops.ssd`` dispatch K2 and K3 by device; ``ref``
+holds their plain versions."""
+from .flash_attention import LAUNCHES as FLASH_ATTENTION_LAUNCHES
+from .ssd import LAUNCHES as SSD_LAUNCHES
 from .waterfill import LAUNCHES as WATERFILL_LAUNCHES
 
-__all__ = ["WATERFILL_LAUNCHES"]
+__all__ = ["FLASH_ATTENTION_LAUNCHES", "SSD_LAUNCHES",
+           "WATERFILL_LAUNCHES"]

@@ -25,21 +25,11 @@ import ctypes
 import torch
 
 from ..core.vectorized.waterfill import waterfill as waterfill_plain
+from ._counter import LaunchCounter
 
 MAX_THREADS = 1024
 
-
-class _Counter:
-    """A plain launch counter: ``count`` goes up by one per launch."""
-
-    def __init__(self):
-        self.count = 0
-
-    def reset(self):
-        self.count = 0
-
-
-LAUNCHES = _Counter()
+LAUNCHES = LaunchCounter()
 
 _FN = None
 

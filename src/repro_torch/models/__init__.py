@@ -1,0 +1,13 @@
+"""LM stack of the port: the serving path (prefill and decode) of the
+hybrid attention + Mamba-2 decoder, with attention (K2) and the SSD scan
+(K3) as hand-written CUDA kernels on the card."""
+from .config import ModelConfig
+from .convert import params_from_jax
+from .steps import make_decode_step, make_prefill_step, \
+    softmax_cross_entropy
+from .transformer import Transformer, decode_step, forward, init_params, \
+    make_cache, prefill
+
+__all__ = ["ModelConfig", "Transformer", "init_params", "forward",
+           "prefill", "decode_step", "make_cache", "make_prefill_step",
+           "make_decode_step", "softmax_cross_entropy", "params_from_jax"]

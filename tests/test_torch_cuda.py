@@ -1,6 +1,8 @@
-"""Tests of the port that need an NVIDIA card: the CUDA waterfill kernel
-against its plain PyTorch version, its launch counter and its checks,
-and the simulator through the kernel against the plain version.  They
+"""Tests of the port that need an NVIDIA card: the CUDA kernels (the
+waterfill K1, flash attention K2, the SSD scan K3) against their plain
+PyTorch versions, their launch counters and checks, and the simulator
+and the LM serving path through the kernels against the plain versions.
+They
 are marked ``cuda`` and skip when no card is present; on a card run
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
@@ -71,3 +73,87 @@ def test_simulator_through_the_kernel_equals_the_plain_version(dev):
     for f in out["auto"]._fields:
         assert np.array_equal(getattr(out["auto"], f),
                               getattr(out["torch"], f)), f
+
+
+ATTN = [  # B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len
+    (2, 25, 5, 64, 80, 64, True, 16, 64),
+    (2, 25, 5, 1, 80, 64, True, 16, 70),
+    (1, 8, 1, 37, 37, 32, True, 0, 37),
+    (1, 4, 1, 50, 60, 256, True, 8, 55),
+    (2, 4, 2, 20, 20, 16, False, 0, 20),
+]
+
+
+@pytest.mark.parametrize("case", ATTN)
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+def test_flash_attention_kernel_matches_plain_version(dev, case, dtype,
+                                                      tol):
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len = case
+    g = torch.Generator(device=dev).manual_seed(sum(case))
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, Hq, Sq, D, generator=g, device=dev).to(dt)
+    # the KV cache's layout [B, S, Hkv, D], seen as [B, Hkv, S, D]
+    k = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).to(dt)
+    v = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).to(dt)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    before = FLASH_ATTENTION_LAUNCHES.count
+    got = flash_attention(q, k.transpose(1, 2), v.transpose(1, 2), **kw)
+    assert FLASH_ATTENTION_LAUNCHES.count == before + 1
+    want = ref.attention_ref(q, k.transpose(1, 2), v.transpose(1, 2), **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dt
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("Bt,L,H,P,N", [(2, 128, 3, 64, 16),
+                                        (1, 96, 2, 16, 128),
+                                        (1, 64, 4, 32, 8)])
+def test_ssd_kernel_matches_plain_version(dev, Bt, L, H, P, N):
+    from repro_torch.kernels import SSD_LAUNCHES, ref
+    from repro_torch.kernels.ssd import ssd_scan
+    g = torch.Generator(device=dev).manual_seed(L * H)
+    x = torch.randn(Bt, L, H, P, generator=g, device=dev)
+    dt = 0.001 + 0.099 * torch.rand(Bt, L, H, generator=g, device=dev)
+    A = -(0.5 + 1.5 * torch.rand(H, generator=g, device=dev))
+    B, C = (torch.randn(Bt, L, N, generator=g, device=dev)
+            for _ in range(2))
+    D = torch.randn(H, generator=g, device=dev)
+    before = SSD_LAUNCHES.count
+    y, state = ssd_scan(x, dt, A, B, C, D, chunk=32, return_state=True)
+    assert SSD_LAUNCHES.count == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ref.ssd_chunked(x, dt, A, B, C, D,
+                                                  chunk=32),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(state, ref.ssd_final_state(x, dt, A, B),
+                               atol=1e-4, rtol=1e-4)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan(x.double(), dt, A, B, C, D, chunk=32)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-130m",
+                                  "gemma3-1b"])
+def test_serving_through_the_kernels_matches_the_plain_path(dev, arch):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = smoke_config(arch)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 36), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(1))
+    out = {}
+    for impl in ("auto", "torch"):
+        lg, cache, pos = prefill(model, toks[:, :32], cache_len=36,
+                                 impl=impl)
+        logits = [lg]
+        for i in range(4):
+            lg, cache, pos = decode_step(model, toks[:, 32 + i:33 + i],
+                                         cache, pos, impl=impl)
+            logits.append(lg)
+        out[impl] = torch.cat(logits, dim=1)
+    torch.testing.assert_close(out["auto"], out["torch"], atol=1e-4,
+                               rtol=1e-4)

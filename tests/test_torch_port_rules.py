@@ -1,8 +1,8 @@
 """Rules of the PyTorch port: ``repro_torch`` imports neither JAX nor
 anything of the reference package (checked in a fresh interpreter that
-imports every module and runs a small CPU grid), and its entry points
-default to CUDA — without a card they raise instead of running on the
-CPU."""
+imports every module, runs a small CPU grid and serves a smoke model),
+and its entry points default to CUDA — without a card they raise
+instead of running on the CPU."""
 import ast
 import os
 import pathlib
@@ -31,6 +31,11 @@ runner = make_grid_runner([(g, encode_graph(g))], "greedy", 4, [2, 2, 2, 2],
 res = runner([dict(bandwidth=64 * 1024 * 1024, msd=0.1,
                    decision_delay=0.05, imode="user")])
 assert res.ok.all() and res.makespan.shape == (1, 1, 1)
+from repro_torch.configs import smoke_config
+from repro_torch.launch.serve import serve
+out = serve(smoke_config("hymba-1.5b"), batch=1, prompt_len=8, gen=2,
+            device="cpu")
+assert out["tokens"].shape == (1, 2)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro.")
@@ -100,6 +105,48 @@ def test_survey_cli_raises_without_a_card():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert "CUDA" in out.stderr and "survey_torch[" not in out.stdout
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_a_card():
+    _needs_no_card()
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_params, params_from_jax
+    cfg = smoke_config("mamba2-130m")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({}, cfg)
+
+
+def test_serve_cli_raises_without_a_card():
+    _needs_no_card()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", "hymba-1.5b", "--smoke"], cwd=str(ROOT),
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "prefill:" not in out.stdout
+
+
+def test_lm_options_not_ported_raise():
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("mixtral-8x22b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        smoke_config("no-such-arch")
+    for kw in (dict(kv_cache_dtype="int8"), dict(window_ring_cache=True),
+               dict(moe_experts=4), dict(cross_attn_every=2),
+               dict(frontend="audio")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Transformer(smoke_config("hymba-1.5b", **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="int8"):
+        serve.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu",
+                    "--kv-dtype", "int8"])
 
 
 def test_chip_smoke_fails_without_a_card():
