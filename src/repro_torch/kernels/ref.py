@@ -59,6 +59,23 @@ def attention_ref(q, k, v, *, causal=True, window=0, scale=None,
 
 
 # ------------------------------------------------------------------ SSD
+def _ssd_recurrence(x, dt, A, B, C=None):
+    """The sequential SSD recurrence: (``y [Bt, L, H, P]`` float32, or
+    None without ``C``; the final state ``f32[Bt, H, N, P]``)."""
+    Bt, L, H, P = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Af = (t.to(F32) for t in (x, dt, B, A))
+    h = torch.zeros(Bt, H, N, P, dtype=F32, device=x.device)
+    ys = []
+    for t in range(L):
+        decay = torch.exp(dtf[:, t] * Af[None, :])             # [Bt,H]
+        h = h * decay[..., None, None] + torch.einsum(
+            "bn,bh,bhp->bhnp", Bf[:, t], dtf[:, t], xf[:, t])
+        if C is not None:
+            ys.append(torch.einsum("bn,bhnp->bhp", C[:, t].to(F32), h))
+    return (torch.stack(ys, dim=1) if C is not None else None), h
+
+
 def ssd_ref(x, dt, A, B, C, D=None):
     """Naive Mamba-2 SSD recurrence (single group).
 
@@ -67,19 +84,9 @@ def ssd_ref(x, dt, A, B, C, D=None):
 
     h_t = exp(dt_t A) h_{t-1} + dt_t * outer(B_t, x_t);  y_t = C_t @ h_t.
     """
-    Bt, L, H, P = x.shape
-    N = B.shape[-1]
-    xf, dtf, Bf, Cf, Af = (t.to(F32) for t in (x, dt, B, C, A))
-    h = torch.zeros(Bt, H, N, P, dtype=F32, device=x.device)
-    ys = []
-    for t in range(L):
-        decay = torch.exp(dtf[:, t] * Af[None, :])             # [Bt,H]
-        h = h * decay[..., None, None] + torch.einsum(
-            "bn,bh,bhp->bhnp", Bf[:, t], dtf[:, t], xf[:, t])
-        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h))
-    y = torch.stack(ys, dim=1)                                  # [Bt,L,H,P]
+    y, _ = _ssd_recurrence(x, dt, A, B, C)                      # [Bt,L,H,P]
     if D is not None:
-        y = y + D.to(F32)[None, None, :, None] * xf
+        y = y + D.to(F32)[None, None, :, None] * x.to(F32)
     return y.to(x.dtype)
 
 
@@ -87,15 +94,7 @@ def ssd_final_state(x, dt, A, B):
     """SSM state ``f32[Bt, H, N, P]`` after the whole sequence, by the
     sequential recurrence (the prefill -> decode handoff of the
     reference's ``models/ssm.py::_final_state``)."""
-    Bt, L, H, P = x.shape
-    N = B.shape[-1]
-    xf, dtf, Bf, Af = (t.to(F32) for t in (x, dt, B, A))
-    h = torch.zeros(Bt, H, N, P, dtype=F32, device=x.device)
-    for t in range(L):
-        decay = torch.exp(dtf[:, t] * Af[None, :])
-        h = h * decay[..., None, None] + torch.einsum(
-            "bn,bh,bhp->bhnp", Bf[:, t], dtf[:, t], xf[:, t])
-    return h
+    return _ssd_recurrence(x, dt, A, B)[1]
 
 
 def ssd_chunked(x, dt, A, B, C, D=None, chunk=64):

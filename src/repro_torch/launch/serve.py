@@ -36,8 +36,7 @@ def greedy(logits):
     return torch.argmax(logits[:, -1:], dim=-1)
 
 
-def serve(cfg, *, batch=4, prompt_len=32, gen=16, device="cuda", seed=0,
-          impl="auto"):
+def serve(cfg, *, batch=4, prompt_len=32, gen=16, device="cuda", seed=0):
     """Initialise ``cfg`` from ``seed``, prefill ``batch`` random prompts
     of ``prompt_len`` tokens and decode ``gen`` tokens greedily.  Returns
     a dict with the generated tokens ``[batch, gen]`` (on the device),
@@ -53,8 +52,7 @@ def serve(cfg, *, batch=4, prompt_len=32, gen=16, device="cuda", seed=0,
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache, pos = prefill(model, prompts, cache_len=cache_len,
-                                 impl=impl)
+    logits, cache, pos = prefill(model, prompts, cache_len=cache_len)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -63,7 +61,7 @@ def serve(cfg, *, batch=4, prompt_len=32, gen=16, device="cuda", seed=0,
     t0 = time.perf_counter()
     for _ in range(gen):
         generated.append(tok[:, 0])
-        logits, cache, pos = decode_step(model, tok, cache, pos, impl=impl)
+        logits, cache, pos = decode_step(model, tok, cache, pos)
         tok = greedy(logits)
     _sync(dev)
     t_decode = (time.perf_counter() - t0) / max(gen, 1)

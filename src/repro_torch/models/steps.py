@@ -16,13 +16,13 @@ def softmax_cross_entropy(logits, labels):
     return torch.mean(logz - gold)
 
 
-def make_prefill_step(cache_len=None, impl="auto"):
+def make_prefill_step(cache_len=None):
     def prefill_step(model, tokens):
-        return prefill(model, tokens, cache_len=cache_len, impl=impl)
+        return prefill(model, tokens, cache_len=cache_len)
     return prefill_step
 
 
-def make_decode_step(impl="auto"):
+def make_decode_step():
     def serve_step(model, tokens, cache, pos):
-        return decode_step(model, tokens, cache, pos, impl=impl)
+        return decode_step(model, tokens, cache, pos)
     return serve_step

@@ -54,10 +54,11 @@ def _params(shapes, dtype, device):
 
 class Layer(nn.Module):
     """One decoder layer: attention and/or Mamba-2 side by side, then the
-    MLP.  Parameters are allocated, not initialised."""
+    MLP.  Parameters are allocated on ``device``, not initialised."""
 
-    def __init__(self, cfg: ModelConfig, window: int, device=None):
+    def __init__(self, cfg: ModelConfig, window: int, device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         f32, act = torch.float32, cfg.activation_dtype
         d = cfg.d_model
         self.cfg = cfg
@@ -116,11 +117,14 @@ class Layer(nn.Module):
 
 class Transformer(nn.Module):
     """The decoder: embedding, ``layers`` (an ``nn.ModuleList``), final
-    norm and LM head (absent when the embeddings are tied)."""
+    norm and LM head (absent when the embeddings are tied).  Parameters
+    are allocated on ``device`` (default ``"cuda"``, which raises without
+    a card), not initialised."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         check_supported(cfg)
+        device = resolve_device(device)
         act, d, v = cfg.activation_dtype, cfg.d_model, cfg.vocab_size
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(v, d, dtype=act,

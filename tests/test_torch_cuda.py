@@ -85,8 +85,8 @@ ATTN = [  # B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len
 
 
 @pytest.mark.parametrize("case", ATTN)
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
-                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("dtype,tol", [("float32", (1e-5, 1e-5)),
+                                       ("bfloat16", (4e-3, 8e-3))])
 def test_flash_attention_kernel_matches_plain_version(dev, case, dtype,
                                                       tol):
     from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES, ref
@@ -105,7 +105,8 @@ def test_flash_attention_kernel_matches_plain_version(dev, case, dtype,
     want = ref.attention_ref(q, k.transpose(1, 2), v.transpose(1, 2), **kw)
     torch.cuda.synchronize()
     assert got.dtype == dt
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
+                               rtol=tol[1])
 
 
 @pytest.mark.parametrize("Bt,L,H,P,N", [(2, 128, 3, 64, 16),

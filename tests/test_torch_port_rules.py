@@ -111,10 +111,12 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_a_card():
     _needs_no_card()
     from repro_torch.configs import smoke_config
     from repro_torch.launch.serve import serve
-    from repro_torch.models import init_params, params_from_jax
+    from repro_torch.models import Transformer, init_params, params_from_jax
     cfg = smoke_config("mamba2-130m")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Transformer(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
