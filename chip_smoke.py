@@ -30,10 +30,21 @@ printing one JSON line:
    (float32 and bfloat16) at Hymba's prefill shape (B 4, Hq 25, Hkv 5,
    Sq 1536, Skv 1568, kv_len 1536, window 1024 and 0, the KV cache's
    strided layout), its decode shape (Sq 1), gemma3's head dim 256, an
-   MQA case (one kv head) and a non-causal case; fails above atol/rtol
-   1e-5 (float32) or atol 4e-3 / rtol 8e-3 (bfloat16).  Times the kernel, the plain
-   version and ``scaled_dot_product_attention`` with the same boolean
-   mask (the yardstick only; the port never calls it).
+   MQA case (one kv head) and a non-causal case, then bfloat16 cases at
+   the edges of the tensor-core and split routes (``Sq``, ``Skv`` and
+   ``kv_len`` off the tile, a window ending inside a tile, decode at
+   ``kv_len`` 1, with one split and with several, more than 8 query
+   heads per kv head); fails above atol/rtol 1e-5 (float32) or atol
+   4e-3 / rtol 8e-3 (bfloat16).  The split route's two kernels are also
+   held alone against ``ref.attention_partials`` (atol/rtol 1e-4) and
+   ``ref.combine_splits`` (the bfloat16 limits).  Times the kernel, the
+   plain version and ``scaled_dot_product_attention`` with the same
+   boolean mask (the yardstick only; the port never calls it) with CUDA
+   events around eager calls.  At decode (Sq 1) one call takes less
+   time on the card than on the host's clock, so an eager loop times
+   the host: there ``ms`` and ``library_ms`` are device times of calls
+   replayed from a CUDA graph, and the eager times stand beside them
+   (``eager_ms``, ``library_eager_ms``).
 8. ``kernel_ssd``: K3 against ``ssd_chunked`` at Hymba's prefill shape
    (Bt 4, L 1536, H 50, P 64, N 16) and mamba2-130m's (H 24, N 128), and
    its final state against the sequential recurrence; fails above
@@ -43,7 +54,10 @@ printing one JSON line:
    launches of K2 (32 layers x 33 forward passes) and K3 (32); then the
    same prompt in float32, prefill and 4 teacher-forced decode steps,
    through the kernels and through the plain versions on the card:
-   logits within atol/rtol 1e-3 and equal greedy tokens.
+   logits within atol/rtol 1e-3 and equal greedy tokens.  K2's launches
+   are also counted by route (bf16: ``tc`` at prefill, ``split`` at
+   decode; float32: ``f32``), and the prefill profile gives K2's device
+   time and share.
 10. ``kernels``: each kernel with its launches on the main path; needs
     every kernel's check phase and the phase of its path in the same run.
 
@@ -444,6 +458,21 @@ ATTN_CASES = (
     ("noncausal_d16", 2, 4, 2, 100, 100, 16, 100, 0, False, False),
 )
 ATTN_PATH = ("prefill_w1024", "prefill_w0", "decode_w1024", "decode_w0")
+# bfloat16 only: the edges of the tensor-core (Sq > 1) and split (Sq 1)
+# routes
+ATTN_EDGE_CASES = (
+    # Sq, Skv, kv_len off the 64 tile; window ends inside a tile;
+    # kv_len < Skv at prefill
+    ("edge_sq1000_w100", 2, 8, 2, 1000, 1100, 64, 1030, 100, True, True),
+    ("edge_d256_sq600_w100", 1, 8, 2, 600, 650, 256, 630, 100, True, True),
+    ("edge_noncausal_w64", 2, 4, 1, 130, 200, 32, 190, 64, False, False),
+    ("edge_decode_kv1", 4, 25, 5, 1, 1568, 64, 1, 0, True, True),
+    ("edge_decode_1split", 4, 25, 5, 1, 1568, 64, 30, 0, True, True),
+    ("edge_decode_7splits", 4, 25, 5, 1, 1568, 64, 200, 0, True, True),
+    ("edge_decode_w100", 4, 25, 5, 1, 1568, 64, 1000, 100, True, True),
+    ("edge_decode_d256_g12", 1, 12, 1, 1, 300, 256, 250, 0, True, True),
+    ("edge_decode_d16", 2, 6, 2, 1, 300, 16, 299, 0, True, False),
+)
 
 
 def _attn_inputs(case, dtype, seed):
@@ -477,59 +506,144 @@ def _attn_work(case, itemsize):
     return nbytes, ops, mask
 
 
+def cuda_graph_ms(fn, iters=20):
+    """Device time of one call of ``fn``, from ``iters`` calls captured
+    in a CUDA graph and replayed (no host cost per call)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _check_split_kernels(case, seed, tol_bf16):
+    """The split route's two kernels alone: the partials against
+    ``ref.attention_partials`` (float32 sums over up to 128 keys in
+    another order: atol/rtol 1e-4), the combine kernel against
+    ``ref.combine_splits`` on the same partials (the bfloat16 limits)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    name, B, Hq, Hkv, Sq, Skv, D, kv_len, window, causal, _ = case
+    q, k, v = _attn_inputs(case, torch.bfloat16, seed)
+    plan, (o, m, l) = fa.split_partials(q, k, v, window=window,
+                                        kv_len=kv_len)
+    bounds = fa.split_bounds(*plan, kv_len)
+    wo, wm, wl = ref.attention_partials(q, k, v, bounds, causal=causal,
+                                        window=window, kv_len=kv_len)
+    got = fa.combine_splits(o, m, l)
+    want = ref.combine_splits(o[..., None, :], m[..., None], l[..., None],
+                              torch.bfloat16)
+    torch.cuda.synchronize()
+    errs = [_close(x, y[..., 0, :] if y.dim() == 5 else y[..., 0],
+                   1e-4, 1e-4) for x, y in ((o, wo), (m, wm), (l, wl))]
+    c_err, c_ok = _close(got.float(), want.float(), *tol_bf16)
+    row = dict(case=name, splits=plan[2], keys_per_split=plan[1],
+               partials_max_abs=max(e for e, _ in errs),
+               partials_ok=all(ok for _, ok in errs),
+               combine_max_abs=c_err, combine_ok=c_ok)
+    row["ok"] = row["partials_ok"] and c_ok
+    return row
+
+
 def phase_kernel_flash_attention(seed=0):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     route_for, split_plan)
     # (atol, rtol): float32 to rounding; bfloat16 about two units in the
     # last place of the output
     tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (4e-3, 8e-3)}
-    checks, timings = [], {}
+    checks, timings, split_checks = [], {}, []
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for i, case in enumerate(ATTN_CASES):
-            name, B, Hq, Hkv, Sq, Skv, D, kv_len, window, causal, _ = case
-            q, k, v = _attn_inputs(case, dtype, seed + i)
-            kw = dict(causal=causal, window=window, kv_len=kv_len)
-            got = flash_attention(q, k, v, **kw)
-            want = ref.attention_ref(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err, ok = _close(got.float(), want.float(), *tol[dtype])
-            worst = max(worst, err)
-            checks.append(dict(case=name, dtype=str(dtype)[6:], max_abs=err,
-                               atol=tol[dtype][0], rtol=tol[dtype][1],
-                               ok=ok,
-                               out_dtype=str(got.dtype)[6:]))
-            if not ok or got.dtype != q.dtype:
+    runs = [(dtype, i, case) for dtype in (torch.float32, torch.bfloat16)
+            for i, case in enumerate(ATTN_CASES)]
+    runs += [(torch.bfloat16, len(ATTN_CASES) + i, case)
+             for i, case in enumerate(ATTN_EDGE_CASES)]
+    for dtype, i, case in runs:
+        name, B, Hq, Hkv, Sq, Skv, D, kv_len, window, causal, _ = case
+        q, k, v = _attn_inputs(case, dtype, seed + i)
+        kw = dict(causal=causal, window=window, kv_len=kv_len)
+        got = flash_attention(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, ok = _close(got.float(), want.float(), *tol[dtype])
+        worst = max(worst, err)
+        checks.append(dict(case=name, dtype=str(dtype)[6:], max_abs=err,
+                           atol=tol[dtype][0], rtol=tol[dtype][1],
+                           route=route_for(dtype, Sq), ok=ok,
+                           out_dtype=str(got.dtype)[6:]))
+        if not ok or got.dtype != q.dtype:
+            emit("kernel_flash_attention", card=CARD, checks=checks,
+                 ok=False)
+            raise AssertionError(f"flash attention kernel disagrees "
+                                 f"with the plain version: {checks[-1]}")
+        if dtype != torch.bfloat16:
+            continue
+        if Sq == 1:
+            split_checks.append(_check_split_kernels(
+                case, seed + i, tol[torch.bfloat16]))
+            if not split_checks[-1]["ok"]:
                 emit("kernel_flash_attention", card=CARD, checks=checks,
-                     ok=False)
-                raise AssertionError(f"flash attention kernel disagrees "
-                                     f"with the plain version: {checks[-1]}")
-            if dtype != torch.bfloat16 or name not in ATTN_PATH:
-                continue
-            nbytes, ops, mask = _attn_work(case, q.element_size())
-            bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
-            ke = k.repeat_interleave(Hq // Hkv, dim=1).contiguous()
-            ve = v.repeat_interleave(Hq // Hkv, dim=1).contiguous()
-            qc = q.contiguous()
-            iters = 20 if Sq > 1 else 200
-            k_ms = cuda_time_ms(lambda: flash_attention(q, k, v, **kw),
-                                iters=iters)
-            p_ms = cuda_time_ms(lambda: ref.attention_ref(q, k, v, **kw),
-                                iters=max(iters // 10, 3), warmup=2)
-            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                qc, ke, ve, attn_mask=mask), iters=iters)
-            lib_err = float((F.scaled_dot_product_attention(
-                qc, ke, ve, attn_mask=mask).float() - want.float())
-                .abs().max())
-            timings[name] = dict(case=name, dtype="bfloat16", ms=k_ms,
-                                 plain_ms=p_ms, library_ms=lib_ms,
-                                 library_max_abs=lib_err, bytes=nbytes,
-                                 ops=ops, bound_ms=bound_ms,
-                                 bound_by=bound_by)
+                     split_checks=split_checks, ok=False)
+                raise AssertionError(f"split route kernels disagree with "
+                                     f"their plain versions: "
+                                     f"{split_checks[-1]}")
+        if name not in ATTN_PATH:
+            continue
+        nbytes, ops, mask = _attn_work(case, q.element_size())
+        bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+        ke = k.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+        ve = v.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+        qc = q.contiguous()
+        iters = 20 if Sq > 1 else 200
+        k_ms = cuda_time_ms(lambda: flash_attention(q, k, v, **kw),
+                            iters=iters)
+        p_ms = cuda_time_ms(lambda: ref.attention_ref(q, k, v, **kw),
+                            iters=max(iters // 10, 3), warmup=2)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qc, ke, ve, attn_mask=mask), iters=iters)
+        lib_err = float((F.scaled_dot_product_attention(
+            qc, ke, ve, attn_mask=mask).float() - want.float())
+            .abs().max())
+        row = dict(case=name, dtype="bfloat16", route=route_for(dtype, Sq),
+                   timed="eager", ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                   library_max_abs=lib_err, bytes=nbytes, ops=ops,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        if Sq == 1:
+            # one decode call is shorter on the card than on the host's
+            # clock, so an eager loop times the host: ms and library_ms
+            # are device times (CUDA graph) here, the eager times beside
+            row.update(timed="cuda_graph", eager_ms=k_ms,
+                       library_eager_ms=lib_ms,
+                       splits=split_plan(kv_len, window, B, Hkv, Hq)[2],
+                       ms=cuda_graph_ms(lambda: flash_attention(q, k, v,
+                                                                **kw)),
+                       library_ms=cuda_graph_ms(
+                           lambda: F.scaled_dot_product_attention(
+                               qc, ke, ve, attn_mask=mask)))
+        row.update(frac_of_bound=bound_ms / row["ms"],
+                   vs_library=row["library_ms"] / row["ms"])
+        timings[name] = row
     emit("kernel_flash_attention", card=CARD, checks=checks,
-         max_abs=worst, timing=list(timings.values()), ok=True)
+         split_checks=split_checks, max_abs=worst,
+         timing=list(timings.values()), ok=True)
     return dict(max_abs_err=worst, path=timings["prefill_w1024"],
                 timing=timings)
 
@@ -617,6 +731,9 @@ def _profile(fn):
     on_dev = [e for e in avg if e.device_type == DeviceType.CUDA]
     on_host = [e for e in avg if e.device_type == DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    # K2: every kernel of csrc/flash_attention.cu is named flash_*
+    k2_ms = sum(e.self_device_time_total for e in on_dev
+                if "flash_" in e.key) / 1e3
     top_dev = sorted(on_dev, key=lambda e: e.self_device_time_total,
                      reverse=True)[:10]
     top_host = sorted(on_host, key=lambda e: e.self_cpu_time_total,
@@ -624,6 +741,7 @@ def _profile(fn):
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                 device_idle_share=1 - busy_ms / (wall * 1e3),
                 device_events=sum(e.count for e in on_dev),
+                k2_device_ms=k2_ms, k2_share=k2_ms / busy_ms,
                 top_device=[(e.key[:70], e.self_device_time_total / 1e3,
                              e.count) for e in top_dev],
                 top_host=[(e.key[:70], e.self_cpu_time_total / 1e3,
@@ -666,6 +784,7 @@ def phase_serve_hymba(seed=0, gen=32, prompt_len=1536, forced=4):
     res = serve.main(argv)
     torch.cuda.synchronize()
     launches = dict(flash_attention=FA.count, ssd=SS.count)
+    routes = dict(FA.routes)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = res["cfg"]
     del res["model"]
@@ -680,6 +799,8 @@ def phase_serve_hymba(seed=0, gen=32, prompt_len=1536, forced=4):
     gc.collect()
     torch.cuda.empty_cache()
     want = dict(flash_attention=cfg.n_layers * (gen + 1), ssd=cfg.n_layers)
+    # bf16: the tensor-core route at prefill, the split route at decode
+    want_routes = dict(tc=cfg.n_layers, split=cfg.n_layers * gen, f32=0)
     tokens, prompts = res["tokens"], res["prompts"]
     bf16 = dict(dtype=cfg.dtype, batch=4, prompt=prompt_len, gen=gen,
                 params=cfg.param_count(),
@@ -688,14 +809,15 @@ def phase_serve_hymba(seed=0, gen=32, prompt_len=1536, forced=4):
                 tokens_per_s=res["tokens_per_s"], warm_run=warm,
                 profile=profile, peak_mem_gb=peak_gb,
                 launches=launches, launches_expected=want,
+                launch_routes=routes, launch_routes_expected=want_routes,
                 tokens_in_vocab=bool((tokens >= 0).all()
                                      and (tokens < cfg.vocab_size).all()),
                 first_tokens=tokens[0, :8].tolist())
     del res
     gc.collect()
     torch.cuda.empty_cache()
-    if launches != want or not bf16["tokens_in_vocab"] \
-            or tokens.shape != (4, gen):
+    if launches != want or routes != want_routes \
+            or not bf16["tokens_in_vocab"] or tokens.shape != (4, gen):
         emit("serve_hymba", card=CARD, bf16=bf16, ok=False)
         raise AssertionError(f"serve_hymba: bf16 run wrong: {bf16}")
 
@@ -720,7 +842,8 @@ def phase_serve_hymba(seed=0, gen=32, prompt_len=1536, forced=4):
         torch.cuda.synchronize()
         runs[impl] = dict(logits=outs, wall_s=time.perf_counter() - t0,
                           launches=dict(flash_attention=FA.count,
-                                        ssd=SS.count))
+                                        ssd=SS.count),
+                          routes=dict(FA.routes))
         del cache
     steps = []
     ok = True
@@ -736,11 +859,14 @@ def phase_serve_hymba(seed=0, gen=32, prompt_len=1536, forced=4):
                kernel_wall_s=runs["auto"]["wall_s"],
                plain_wall_s=runs["torch"]["wall_s"],
                kernel_launches=runs["auto"]["launches"],
-               plain_launches=runs["torch"]["launches"], steps=steps)
+               plain_launches=runs["torch"]["launches"],
+               kernel_launch_routes=runs["auto"]["routes"], steps=steps)
     ok = ok and runs["torch"]["launches"] == dict(flash_attention=0, ssd=0) \
         and runs["auto"]["launches"] == dict(
             flash_attention=cfg32.n_layers * (forced + 1),
-            ssd=cfg32.n_layers)
+            ssd=cfg32.n_layers) \
+        and runs["auto"]["routes"] == dict(
+            tc=0, split=0, f32=cfg32.n_layers * (forced + 1))
     emit("serve_hymba", card=CARD, bf16=bf16, f32=f32, ok=ok)
     if not ok:
         raise AssertionError("serve_hymba: the kernel path disagrees with "
@@ -748,7 +874,7 @@ def phase_serve_hymba(seed=0, gen=32, prompt_len=1536, forced=4):
     del model, runs
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, routes
 
 
 # ------------------------------------------------------------------ main
@@ -792,8 +918,10 @@ def main(argv=None):
         fa = phase_kernel_flash_attention()
     if "kernel_ssd" in phases:
         ss = phase_kernel_ssd()
+    k2_routes = None
     if "serve_hymba" in phases:
-        launches.update(phase_serve_hymba())
+        serve_launches, k2_routes = phase_serve_hymba()
+        launches.update(serve_launches)
     kernels = []
     for name, res, src, replaces, lib in (
             ("waterfill", wf, "waterfill.cu",
@@ -813,6 +941,9 @@ def main(argv=None):
             bound_ms=res["path"]["bound_ms"],
             bound_by=res["path"]["bound_by"],
             library_ms=res["path"]["library_ms"] if lib else None))
+        if name == "flash_attention":
+            # the main path's launches by route (null without its phase)
+            kernels[-1]["launch_routes"] = k2_routes
     if "kernels" in phases:
         emit("kernels", kernels=[dict(name=k["name"],
                                       launches=k["launches"],

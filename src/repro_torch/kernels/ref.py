@@ -2,7 +2,9 @@
 
 They compute what the reference package's oracles compute
 (``attention_ref``, ``ssd_ref``, ``ssd_chunked``, and the sequential
-final-state scan of ``models/ssm.py``), in the same layouts.  The CPU
+final-state scan of ``models/ssm.py``), in the same layouts; beside
+them, the plain versions of the decode route's two kernels
+(``attention_partials``, ``combine_splits``).  The CPU
 path and the tests use them; on the card the wrappers in
 ``flash_attention.py`` and ``ssd.py`` launch the CUDA kernels instead,
 and ``chip_smoke.py`` holds each kernel against these.
@@ -56,6 +58,50 @@ def attention_ref(q, k, v, *, causal=True, window=0, scale=None,
     probs = torch.softmax(logits, dim=-1)
     out = torch.matmul(probs, vv)
     return out.to(q.dtype)
+
+
+def attention_partials(q, k, v, bounds, *, causal=True, window=0,
+                       scale=None, kv_len=None):
+    """Unnormalised float32 partials of ``attention_ref`` over key
+    ranges, the plain version of the split route's first kernel.  For
+    each ``[start, stop)`` of ``bounds``, over the keys in it that the
+    mask shows: ``m`` the largest score (-1e30 when none),
+    ``l = sum exp(s - m)`` and ``o = sum exp(s - m) v``.  Returns
+    ``(o [S, B, Hq, Sq, D], m [S, B, Hq, Sq], l [S, B, Hq, Sq])``."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    kk = k.repeat_interleave(group, dim=1).to(F32)
+    vv = v.repeat_interleave(group, dim=1).to(F32)
+    logits = torch.matmul(q.to(F32), kk.transpose(-1, -2)) * scale
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          kv_len=kv_len, device=q.device)
+    keys = torch.arange(Skv, device=q.device)
+    os, ms, ls = [], [], []
+    for start, stop in bounds:
+        seen = mask & (keys >= start) & (keys < stop)
+        s = logits.masked_fill(~seen, -1e30)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None]) * seen
+        os.append(torch.matmul(p, vv))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+    return torch.stack(os), torch.stack(ms), torch.stack(ls)
+
+
+def combine_splits(o_parts, m_parts, l_parts, out_dtype):
+    """Attention output from unnormalised partials (leading axis: the
+    splits), the plain version of the split route's combine kernel:
+    each split rescaled by ``exp(m_s - max m)``, summed, divided by the
+    summed ``l`` floored at 1e-30, cast to ``out_dtype``.  A split with
+    no visible key (``m = -1e30``, ``l = 0``, ``o = 0``) adds nothing."""
+    m = m_parts.to(F32)
+    w = torch.exp(m - m.amax(dim=0))
+    den = (w * l_parts.to(F32)).sum(dim=0).clamp_min(1e-30)
+    out = (w[..., None] * o_parts.to(F32)).sum(dim=0) / den[..., None]
+    return out.to(out_dtype)
 
 
 # ------------------------------------------------------------------ SSD

@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels (the
-waterfill K1, flash attention K2, the SSD scan K3) against their plain
-PyTorch versions, their launch counters and checks, and the simulator
-and the LM serving path through the kernels against the plain versions.
+waterfill K1, flash attention K2 on each of its routes, the SSD scan
+K3) against their plain PyTorch versions, their launch counters and
+checks, and the simulator and the LM serving path through the kernels
+against the plain versions.
 They
 are marked ``cuda`` and skip when no card is present; on a card run
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -81,6 +82,16 @@ ATTN = [  # B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len
     (1, 8, 1, 37, 37, 32, True, 0, 37),
     (1, 4, 1, 50, 60, 256, True, 8, 55),
     (2, 4, 2, 20, 20, 16, False, 0, 20),
+    # the edges of the bf16 routes: Sq, Skv and kv_len off the 64-key
+    # tile, a window ending inside a tile, kv_len < Skv at prefill ...
+    (2, 8, 2, 1000, 1100, 64, True, 100, 1030),
+    (1, 8, 2, 600, 650, 256, True, 100, 630),
+    # ... decode at kv_len 1, with one split, with several, and with
+    # more than 8 query heads per kv head
+    (4, 25, 5, 1, 1568, 64, True, 0, 1),
+    (4, 25, 5, 1, 1568, 64, True, 0, 30),
+    (4, 25, 5, 1, 1568, 64, True, 1024, 1552),
+    (1, 12, 1, 1, 300, 256, True, 0, 250),
 ]
 
 
@@ -107,6 +118,27 @@ def test_flash_attention_kernel_matches_plain_version(dev, case, dtype,
     assert got.dtype == dt
     torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
                                rtol=tol[1])
+
+
+@pytest.mark.parametrize("dtype,Sq,route", [("float32", 1, "f32"),
+                                            ("float32", 40, "f32"),
+                                            ("bfloat16", 1, "split"),
+                                            ("bfloat16", 40, "tc")])
+def test_flash_attention_counts_one_launch_per_call_by_route(dev, dtype,
+                                                             Sq, route):
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator(device=dev).manual_seed(Sq)
+    dt = getattr(torch, dtype)
+    q = torch.randn(2, 10, Sq, 64, generator=g, device=dev).to(dt)
+    k, v = (torch.randn(2, 2, 48, 64, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    before, routes = FA.count, dict(FA.routes)
+    flash_attention(q, k, v, window=16, kv_len=45)
+    torch.cuda.synchronize()
+    assert FA.count == before + 1
+    routes[route] += 1
+    assert FA.routes == routes
 
 
 @pytest.mark.parametrize("Bt,L,H,P,N", [(2, 128, 3, 64, 16),
