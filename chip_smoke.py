@@ -15,8 +15,11 @@ printing one JSON line:
 3. ``kernel_waterfill``: the waterfill kernel against its plain PyTorch
    version on the card — random flow sets at R = 4096 rows for
    W in {8, 16, 32} (F = 4W) plus edge cases, bitwise equality expected
-   (fails above rtol 1e-6) — and both versions timed with CUDA events at
-   the survey's shape.
+   (fails above rtol 1e-6) — and both versions timed at the survey's
+   shape (R 96) and at R 4096: the kernel by device time of calls
+   replayed from a CUDA graph (``ms``; an eager loop of calls this short
+   times the host, its time stands beside as ``eager_ms``), the plain
+   version with CUDA events around eager calls.
 4. ``golden``: the dynamic simulator against the reference package's
    recorded ``BENCH_PR7.json`` dynamic rows (blevel, maxmin, frontier
    on, 100 MiB/s, exact imode, msd 0).
@@ -45,10 +48,16 @@ printing one JSON line:
    the host: there ``ms`` and ``library_ms`` are device times of calls
    replayed from a CUDA graph, and the eager times stand beside them
    (``eager_ms``, ``library_eager_ms``).
-8. ``kernel_ssd``: K3 against ``ssd_chunked`` at Hymba's prefill shape
-   (Bt 4, L 1536, H 50, P 64, N 16) and mamba2-130m's (H 24, N 128), and
-   its final state against the sequential recurrence; fails above
-   atol/rtol 1e-4.
+8. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
+   ``ssd_state_pass``, ``ssd_chunk_scan``) each alone against its plain
+   piece (``ref.ssd_chunk_states``, ``ssd_pass_states``,
+   ``ssd_chunk_scan``), and the whole call against ``ssd_chunked`` and
+   the sequential final state, at Hymba's prefill shape (Bt 4, L 1536,
+   H 50, P 64, N 16), mamba2-130m's (H 24, N 128) and edge cases (one
+   chunk, chunk 32, P 16, N 128, a short last head group, a decay that
+   overflows above the diagonal, Q/P/N off a multiple of 4, the smoke
+   serve's L 8); fails above atol/rtol 1e-4.  Times the call and each
+   phase alone with CUDA events around eager calls.
 9. ``serve_hymba``: ``repro_torch.launch.serve`` at full width in
    bfloat16 (batch 4, prompt 1536, gen 32) through the kernels, with the
    launches of K2 (32 layers x 33 forward passes) and K3 (32); then the
@@ -56,8 +65,8 @@ printing one JSON line:
    through the kernels and through the plain versions on the card:
    logits within atol/rtol 1e-3 and equal greedy tokens.  K2's launches
    are also counted by route (bf16: ``tc`` at prefill, ``split`` at
-   decode; float32: ``f32``), and the prefill profile gives K2's device
-   time and share.
+   decode; float32: ``f32``), and the prefill profile gives K2's and
+   K3's device time and share.
 10. ``kernels``: each kernel with its launches on the main path; needs
     every kernel's check phase and the phase of its path in the same run.
 
@@ -264,8 +273,13 @@ def phase_kernel_waterfill(seed=0, path_rows=96, path_w=32):
         src, dst, active, caps = (torch.as_tensor(x, device=dev)
                                   for x in _flow_sets(rng, rows, path_w,
                                                       4 * path_w))
-        k_ms = cuda_time_ms(lambda: wk.waterfill(src, dst, active, caps,
-                                                 caps), iters=200)
+        # a call of a few microseconds: an eager loop times the host's
+        # enqueue, so ms is device time from CUDA-graph replay and the
+        # eager time stands beside it
+        def kernel():
+            return wk.waterfill(src, dst, active, caps, caps)
+        k_ms = cuda_graph_ms(kernel, iters=200)
+        eager_ms = cuda_time_ms(kernel, iters=200)
         p_ms = cuda_time_ms(lambda: plain(src, dst, active, caps, caps),
                             iters=20, warmup=2)
         rates = plain(src, dst, active, caps, caps)
@@ -273,6 +287,7 @@ def phase_kernel_waterfill(seed=0, path_rows=96, path_w=32):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_OPS_PER_S * 1e3
         timings[rows] = dict(rows=rows, W=path_w, F=4 * path_w, ms=k_ms,
+                             timed="cuda_graph", eager_ms=eager_ms,
                              plain_ms=p_ms, bytes=nbytes, ops=ops,
                              bound_ms=max(t_bytes, t_ops),
                              bound_by="bytes" if t_bytes >= t_ops
@@ -676,37 +691,106 @@ def _ssd_work(Bt, L, H, P, N, Q=64):
     return nbytes, ops
 
 
+# name, Bt, L, H, P, N, chunk, (A, dt) held constant or None; the first
+# two are the models' prefill shapes and are timed
+SSD_CASES = (
+    ("hymba", 4, 1536, 50, 64, 16, 64, None),
+    ("mamba2_130m", 4, 1536, 24, 64, 128, 64, None),
+    ("single_chunk", 2, 64, 6, 64, 16, 64, None),
+    ("chunk32", 2, 256, 10, 64, 16, 32, None),
+    ("n128_p32", 1, 128, 3, 32, 128, 64, None),
+    # 53 heads: the last head group of both phases runs short
+    ("ragged_group_h53", 4, 1536, 53, 64, 16, 64, None),
+    ("p16", 2, 512, 12, 16, 16, 64, None),
+    # exp(cum_i - cum_j) grows to e^50 above the diagonal: Γ's select
+    ("strong_decay", 2, 256, 8, 64, 16, 64, (-8.0, 0.1)),
+    # Q, P and N off a multiple of 4: padded tiles, 4-byte copies
+    ("odd_q9_p10_n6", 2, 36, 3, 10, 6, 9, None),
+    ("smoke_serve_l8", 2, 8, 4, 16, 8, 64, None),
+)
+SSD_TIMED = ("hymba", "mamba2_130m")
+# PR 13's single-kernel K3 at Hymba's shape (PERF.md §6; NVIDIA H100
+# 80GB HBM3, 700 W), which this design replaced
+SSD_EARLIER_MS = 0.8908240318298339
+
+
+def _ssd_case_inputs(case, seed):
+    import torch
+    _, Bt, L, H, P, N, _, decay = case
+    x, dt, A, B, C, D = _ssd_inputs(Bt, L, H, P, N, seed)
+    if decay is not None:
+        A, dt = torch.full_like(A, decay[0]), torch.full_like(dt, decay[1])
+    return x, dt, A, B, C, D
+
+
 def phase_kernel_ssd(seed=0):
+    """Each of K3's three kernels alone against its plain piece, fed the
+    plain piece's inputs, and the whole call against ``ssd_chunked`` and
+    the sequential final state, all at atol/rtol 1e-4; times at the
+    models' prefill shapes, each phase alone at Hymba's."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.kernels import ssd as sk
     out, worst, timings = [], 0.0, {}
-    for name, (Bt, L, H, P, N) in (("hymba", (4, 1536, 50, 64, 16)),
-                                   ("mamba2_130m", (4, 1536, 24, 64, 128))):
-        x, dt, A, B, C, D = _ssd_inputs(Bt, L, H, P, N, seed)
-        y, state = ssd_scan(x, dt, A, B, C, D, return_state=True)
-        y_ref = ref.ssd_chunked(x, dt, A, B, C, D)
-        st_ref = ref.ssd_final_state(x, dt, A, B)
+    for i, case in enumerate(SSD_CASES):
+        name, Bt, L, H, P, N, chunk, _ = case
+        x, dt, A, B, C, D = _ssd_case_inputs(case, seed + i)
+        S_ref, tot_ref = ref.ssd_chunk_states(x, dt, A, B, chunk=chunk)
+        h_ref, fin_ref = ref.ssd_pass_states(S_ref, tot_ref)
+        y_ref = ref.ssd_chunked(x, dt, A, B, C, D, chunk=chunk)
+        got = dict(S_loc=sk.chunk_states(x, dt, A, B, chunk=chunk))
+        got["pass"] = sk.pass_states(S_ref, tot_ref)
+        got["scan"] = sk.chunk_scan(x, dt, A, B, C, D, h_ref, chunk=chunk)
+        got["ssd_scan"] = sk.ssd_scan(x, dt, A, B, C, D, chunk=chunk,
+                                      return_state=True)
         torch.cuda.synchronize()
-        y_err, y_ok = _close(y, y_ref, 1e-4, 1e-4)
-        s_err, s_ok = _close(state, st_ref, 1e-4, 1e-4)
-        worst = max(worst, y_err, s_err)
-        nbytes, ops = _ssd_work(Bt, L, H, P, N)
-        bound_ms, bound_by = _bound(nbytes, ops, F32_OPS_PER_S)
-        k_ms = cuda_time_ms(lambda: ssd_scan(x, dt, A, B, C, D,
-                                             return_state=True), iters=20)
-        p_ms = cuda_time_ms(lambda: ref.ssd_chunked(x, dt, A, B, C, D),
-                            iters=3, warmup=1)
-        row = dict(case=name, Bt=Bt, L=L, H=H, P=P, N=N, y_max_abs=y_err,
-                   state_max_abs=s_err, ok=y_ok and s_ok, ms=k_ms,
-                   plain_ms=p_ms, library_ms=None, bytes=nbytes, ops=ops,
-                   bound_ms=bound_ms, bound_by=bound_by)
+        pairs = dict(
+            chunk_state_S=(got["S_loc"][0], S_ref),
+            chunk_state_total=(got["S_loc"][1], tot_ref),
+            state_pass_h_in=(got["pass"][0], h_ref),
+            state_pass_final=(got["pass"][1], fin_ref),
+            chunk_scan_y=(got["scan"], ref.ssd_chunk_scan(
+                x, dt, A, B, C, D, h_ref, chunk=chunk)),
+            y=(got["ssd_scan"][0], y_ref),
+            state=(got["ssd_scan"][1], ref.ssd_final_state(x, dt, A, B)))
+        errs = {k: _close(a, w, 1e-4, 1e-4) for k, (a, w) in pairs.items()}
+        row = dict(case=name, Bt=Bt, L=L, H=H, P=P, N=N,
+                   Q=min(chunk, L), max_abs={k: e for k, (e, _) in
+                                             errs.items()},
+                   ok=all(ok for _, ok in errs.values()))
+        worst = max([worst] + [e for e, _ in errs.values()])
         out.append(row)
-        timings[name] = row
         if not row["ok"]:
             emit("kernel_ssd", card=CARD, rows=out, ok=False)
-            raise AssertionError(f"ssd kernel disagrees with the plain "
-                                 f"version: {row}")
+            raise AssertionError(f"ssd kernels disagree with their plain "
+                                 f"versions: {row}")
+        if name not in SSD_TIMED:
+            continue
+        Q = min(chunk, L)
+        nbytes, ops = _ssd_work(Bt, L, H, P, N, Q)
+        bound_ms, bound_by = _bound(nbytes, ops, F32_OPS_PER_S)
+        k_ms = cuda_time_ms(lambda: sk.ssd_scan(x, dt, A, B, C, D,
+                                                return_state=True), iters=20)
+        p_ms = cuda_time_ms(lambda: ref.ssd_chunked(x, dt, A, B, C, D),
+                            iters=3, warmup=1)
+        # each phase alone, on the call's own scratch (the pass rewrites
+        # its buffer in place on every launch; its time does not depend
+        # on the values)
+        S, tot = got["S_loc"]
+        h_in = S.clone()
+        state = torch.empty_like(got["ssd_scan"][1])
+        phase_ms = dict(
+            chunk_state=cuda_time_ms(
+                lambda: sk._chunk_states(x, dt, A, B, Q), iters=20),
+            state_pass=cuda_time_ms(
+                lambda: sk._pass_states(h_in, tot, state), iters=20),
+            chunk_scan=cuda_time_ms(
+                lambda: sk._chunk_scan(x, dt, A, B, C, D, S, Q), iters=20))
+        row.update(ms=k_ms, phase_ms=phase_ms, earlier_ms=(
+            SSD_EARLIER_MS if name == "hymba" else None), plain_ms=p_ms,
+            library_ms=None, bytes=nbytes, ops=ops, bound_ms=bound_ms,
+            bound_by=bound_by, frac_of_bound=bound_ms / k_ms)
+        timings[name] = row
     emit("kernel_ssd", card=CARD, rows=out, max_abs=worst, ok=True)
     return dict(max_abs_err=worst, path=timings["hymba"])
 
@@ -734,6 +818,9 @@ def _profile(fn):
     # K2: every kernel of csrc/flash_attention.cu is named flash_*
     k2_ms = sum(e.self_device_time_total for e in on_dev
                 if "flash_" in e.key) / 1e3
+    # K3: every kernel of csrc/ssd.cu is named ssd_*
+    k3_ms = sum(e.self_device_time_total for e in on_dev
+                if e.key.startswith("ssd_") or "::ssd_" in e.key) / 1e3
     top_dev = sorted(on_dev, key=lambda e: e.self_device_time_total,
                      reverse=True)[:10]
     top_host = sorted(on_host, key=lambda e: e.self_cpu_time_total,
@@ -742,6 +829,7 @@ def _profile(fn):
                 device_idle_share=1 - busy_ms / (wall * 1e3),
                 device_events=sum(e.count for e in on_dev),
                 k2_device_ms=k2_ms, k2_share=k2_ms / busy_ms,
+                k3_device_ms=k3_ms, k3_share=k3_ms / busy_ms,
                 top_device=[(e.key[:70], e.self_device_time_total / 1e3,
                              e.count) for e in top_dev],
                 top_host=[(e.key[:70], e.self_cpu_time_total / 1e3,

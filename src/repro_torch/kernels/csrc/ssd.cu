@@ -1,177 +1,585 @@
-// Mamba-2 SSD chunked scan, for Hopper (sm_90a).
+// Mamba-2 SSD chunked scan, for Hopper (sm_90a): three chunk-parallel
+// kernels.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd.py::_ssd_kernel (Pallas;
 // wrapper ssd_scan).  On the TPU the chunk axis was the sequential grid
 // dimension and the state [N, P] sat in VMEM scratch between grid steps.
-// Blocks of a CUDA grid run in no order, so here one block owns one
-// (batch, head) pair and walks its chunks in a loop, carrying the state
-// in shared memory as float32 (4 KB at N = 16, P = 64; 32 KB at N = 128).
+// Here the scan is cut into the three phases of the Mamba-2 paper's SSD
+// algorithm (Dao & Gu 2024, arXiv:2405.21060, §6), so that every chunk
+// of every head is a block of its own and only the elementwise pass over
+// the states runs in chunk order:
 //
-// For each chunk of Q steps (Q = min(chunk, L), L % Q == 0):
-//   stage x, dt, B, C into shared memory (float32);
-//   cum  = inclusive prefix sum of dt * A;
-//   G    = (C Bᵀ) ⊙ Γ,  Γ[i][j] = exp(cum_i - cum_j) where j <= i, else 0
-//          (a select, as the Pallas kernel has it: above the diagonal the
-//          exp may overflow, and inf * 0 would be NaN);
-//   y    = G (dt x) + (C ⊙ exp(cum)) S + D x;
-//   S    = exp(cum_Q) S + (B ⊙ exp(cum_Q - cum))ᵀ (dt x).
-// After the last chunk S is written out: it is the state the prefill
-// hands to decode (the reference obtains it by a second, sequential scan
-// over all L steps).
+//   ssd_chunk_state  grid (nc, Bt, head groups): per chunk c and head h
+//       cum   = inclusive prefix sum of dt * A (a warp scan),
+//       S_c   = (B ⊙ exp(total - cum))ᵀ (dt x)          -> S_loc [Bt,nc,H,N,P]
+//       total = cum[Q-1]                                -> total [Bt,nc,H]
+//   ssd_state_pass   grid (tiles of N·P, Bt·H): in chunk order
+//       h_in[c] = h;  h = exp(total_c) h + S_c          (h_in overwrites
+//       S_loc in place: each element is read before it is written), and
+//       after the last chunk the final state, which prefill hands to
+//       decode (the reference obtains it by a sequential scan over L);
+//   ssd_chunk_scan   grid (nc, Bt, head groups): per block C Bᵀ [Q, Q]
+//       once, then for each head of the group
+//       G = C Bᵀ ⊙ Γ ⊙ dt_j,  Γ[i][j] = exp(cum_i - cum_j) where j <= i,
+//           else 0 (a select, as the Pallas kernel has it: above the
+//           diagonal the exp may overflow, and inf * 0 would be NaN),
+//       y = G x + exp(cum) ⊙ (C h_in) + D x, written once.
 //
-// What bounds it on the H100: bytes, narrowly.  Per (batch, head) and
-// chunk it does about Q (Q N + Q P + 4 N P) flops against 4 Q (2 P + 1)
-// bytes of x, dt and y, plus B and C shared by all heads; at Hymba's
-// prefill shape (Bt 4, L 1536, H 50, P 64, N 16) the whole call moves
-// about 160 MB and does about 3 GFLOP.  This first version uses the
-// CUDA cores only, one block per (batch, head), so a batch of 4 fills
-// 200 blocks; its times are in PERF.md.  Explicit fmaf keeps the dot
-// products fused although the port builds with --fmad=false.
+// What bounds it on the H100: bytes.  The function reads x, dt, B, C
+// once and writes y and the final state once: at Hymba's prefill shape
+// (Bt 4, L 1536, H 50, P 64, N 16, Q 64) about 160 MB, 0.0478 ms at
+// 3.35 TB/s, against about 3 GFLOP of float32 work (0.043 ms at 67
+// TFLOP/s).  The three phases move about 315 MB: x is read twice
+// (2 × 78.6 MB), y written once (78.6 MB), and S_loc is written, read
+// and rewritten as h_in, then read again (4 × 19.7 MB, of which about
+// 79 MB can hit the 50 MB L2, since the pass follows the phase that
+// wrote them).  What the design does about it:
+//   * every block is one (batch, chunk, head group): 960 blocks of
+//     chunk_scan at Hymba's shape against the 200 of a block per
+//     (batch, head) walking 24 chunks;
+//   * every product runs on register tiles: a thread owns 4 x 4 outputs
+//     (of S [N, P], of C Bᵀ, of y [Q, P]) and reads both operands as
+//     float4 from shared memory, 16 FMAs per two loads;
+//   * C Bᵀ is formed once per block and reused by every head of the
+//     group (B and C are one group, shared by all heads);
+//   * x, h_in, B, C and dt arrive by cp.async; in chunk_scan the next
+//     head's x and h_in stream into a second buffer while this head
+//     computes;
+//   * the cumulative decay is a warp scan (__shfl_up_sync), one warp per
+//     head.
+// The products are float32 FFMA (explicit fmaf: the port builds with
+// --fmad=false), so the scan keeps its 1e-4 agreement with the plain
+// versions.  Shapes: 0 < Q <= 64, L % Q == 0, any P and N that shared
+// memory holds; Q, N and P off a multiple of 4 are padded in shared
+// memory and masked on store, and 4-byte copies stand in for 16-byte
+// ones where rows are not 16-byte aligned.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxChunk = 64;
+constexpr int kStateThreads = 128;   // ssd_chunk_state
+constexpr int kPassThreads = 128;    // ssd_state_pass
+constexpr int kScanThreads = 256;    // ssd_chunk_scan, at most
+constexpr int kPassBatch = 8;        // chunks loaded ahead in the pass
+constexpr int kSmemLimit = 227 * 1024;
 
-// Shared memory (dynamic, float32):
-//   x [Q][P], xdt [Q][P], B [Q][N+1], C [Q][N+1], G [Q][Q+1], S [N][P],
-//   dt [Q], cum [Q], ecum [Q] = exp(cum), w [Q] = exp(total - cum).
-__global__ void __launch_bounds__(kThreads)
-ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ A, const float* __restrict__ Bm,
-           const float* __restrict__ Cm, const float* __restrict__ Dv,
-           float* __restrict__ y, float* __restrict__ state_out, int L,
-           int H, int P, int N, int Q) {
-  extern __shared__ float smem[];
-  const int ldn = N + 1, ldq = Q + 1;
-  float* x_s = smem;
-  float* xdt_s = x_s + Q * P;
-  float* b_s = xdt_s + Q * P;
-  float* c_s = b_s + Q * ldn;
-  float* g_s = c_s + Q * ldn;
-  float* st_s = g_s + Q * ldq;
-  float* dt_s = st_s + N * P;
-  float* cum_s = dt_s + Q;
-  float* ecum_s = cum_s + Q;
-  float* w_s = ecum_s + Q;
+__host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int tid = threadIdx.x;
-  const float a = A[h];
-  const float dskip = Dv[h];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  for (int idx = tid; idx < N * P; idx += kThreads) st_s[idx] = 0.f;
-
-  const int n_chunks = L / Q;
-  for (int c = 0; c < n_chunks; ++c) {
-    const long long t0 = static_cast<long long>(b) * L + c * Q;
-    // ---- stage the chunk
-    for (int idx = tid; idx < Q * P; idx += kThreads) {
-      const int t = idx / P, p = idx - t * P;
-      x_s[idx] = x[((t0 + t) * H + h) * P + p];
+// Copies `rows` rows of `cols` floats (global row stride `gs`) into
+// shared rows of stride `ss`: 16-byte copies when `vec` (cols % 4 == 0,
+// rows 16-byte aligned in both), else 4-byte ones.
+__device__ __forceinline__ void stage_rows(float* dst, int ss,
+                                           const float* src, long long gs,
+                                           int rows, int cols, bool vec) {
+  if (vec) {
+    const int c4 = cols >> 2;
+    for (int idx = threadIdx.x; idx < rows * c4; idx += blockDim.x) {
+      const int r = idx / c4, c = idx - r * c4;
+      cp_async16(dst + r * ss + 4 * c, src + r * gs + 4 * c);
     }
-    for (int idx = tid; idx < Q * N; idx += kThreads) {
-      const int t = idx / N, n = idx - t * N;
-      b_s[t * ldn + n] = Bm[(t0 + t) * N + n];
-      c_s[t * ldn + n] = Cm[(t0 + t) * N + n];
+  } else {
+    for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
+      const int r = idx / cols, c = idx - r * cols;
+      cp_async4(dst + r * ss + c, src + r * gs + c);
     }
-    if (tid < Q) dt_s[tid] = dt[(t0 + tid) * H + h];
-    __syncthreads();
-    // ---- cumulative decay (sequential, Q <= 64 adds)
-    if (tid == 0) {
-      float cum = 0.f;
-      for (int t = 0; t < Q; ++t) {
-        cum += dt_s[t] * a;
-        cum_s[t] = cum;
+  }
+}
+
+// Stores 4 consecutive outputs at dst[0..3], the first `n` of them
+// (n < 4 only at a ragged edge, where `vec` is false).
+__device__ __forceinline__ void store4(float* dst, float4 v, int n,
+                                       bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(dst) = v;
+  } else {
+    if (n > 0) dst[0] = v.x;
+    if (n > 1) dst[1] = v.y;
+    if (n > 2) dst[2] = v.z;
+    if (n > 3) dst[3] = v.w;
+  }
+}
+
+// Inclusive prefix sum of dt[t] * a over t < Q (Q <= 64) by one warp,
+// two steps per lane; writes cum[0..Q) and returns the total to every
+// lane.
+__device__ __forceinline__ float warp_cumsum(const float* dt, float a,
+                                             int Q, float* cum) {
+  const int lane = threadIdx.x & 31;
+  const int t0 = 2 * lane, t1 = t0 + 1;
+  const float d0 = t0 < Q ? dt[t0] * a : 0.f;
+  const float d1 = t1 < Q ? dt[t1] * a : 0.f;
+  const float pair = d0 + d1;
+  float s = pair;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, s, off);
+    if (lane >= off) s += o;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, s, 1);
+  if (lane == 0) excl = 0.f;
+  const float c0 = excl + d0;
+  if (t0 < Q) cum[t0] = c0;
+  if (t1 < Q) cum[t1] = c0 + d1;
+  return __shfl_sync(0xffffffffu, s, 31);
+}
+
+// ---------------------------------------------------------------- phase 1
+// Shared memory (float32): B [Q][Np], x [HG][Q][Pp], dt [HG][Q],
+// coef [HG][Q] = dt * exp(total - cum).
+__global__ void __launch_bounds__(kStateThreads)
+ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const float* __restrict__ Bm,
+                float* __restrict__ S_loc, float* __restrict__ total,
+                int L, int H, int P, int N, int Q, int HG, int vec_x) {
+  extern __shared__ __align__(16) float smem[];
+  const int Np = round4(N), Pp = round4(P);
+  float* b_s = smem;
+  float* x_s = b_s + Q * Np;
+  float* dt_s = x_s + HG * Q * Pp;
+  float* coef_s = dt_s + HG * Q;
+
+  const int c = blockIdx.x, b = blockIdx.y, h0 = blockIdx.z * HG;
+  const int nh = min(HG, H - h0);
+  const int nc = L / Q;
+  const long long row0 = static_cast<long long>(b) * L + c * Q;
+  const bool vx = vec_x != 0;
+
+  stage_rows(b_s, Np, Bm + row0 * N, N, Q, N, false);
+  // x rows of the group are contiguous: nh * P floats per step
+  for (int hl = 0; hl < nh; ++hl)
+    stage_rows(x_s + hl * Q * Pp, Pp, x + (row0 * H + h0 + hl) * P,
+               static_cast<long long>(H) * P, Q, P, vx);
+  for (int idx = threadIdx.x; idx < nh * Q; idx += blockDim.x) {
+    const int hl = idx / Q, t = idx - hl * Q;
+    cp_async4(dt_s + idx, dt + (row0 + t) * H + h0 + hl);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int hl = warp; hl < nh; hl += nwarps) {
+    float* cum = coef_s + hl * Q;       // cum first, then the coefficient
+    const float tot = warp_cumsum(dt_s + hl * Q, A[h0 + hl], Q, cum);
+    __syncwarp();
+    for (int t = threadIdx.x & 31; t < Q; t += 32)
+      cum[t] = dt_s[hl * Q + t] * expf(tot - cum[t]);
+    if ((threadIdx.x & 31) == 0)
+      total[(static_cast<long long>(b) * nc + c) * H + h0 + hl] = tot;
+  }
+  __syncthreads();
+
+  // S [N, P] per head in 4 x 4 register tiles: item = (head, n tile,
+  // p tile), p tile fastest
+  const int ntn = Np >> 2, ntp = Pp >> 2;
+  const int per_head = ntn * ntp;
+  const bool vs = (P & 3) == 0;
+  for (int item = threadIdx.x; item < nh * per_head; item += blockDim.x) {
+    const int hl = item / per_head, r = item - hl * per_head;
+    const int n0 = (r / ntp) * 4, p0 = (r % ntp) * 4;
+    const float* xh = x_s + hl * Q * Pp + p0;
+    const float* cf = coef_s + hl * Q;
+    float acc[4][4] = {};
+    for (int j = 0; j < Q; ++j) {
+      const float4 bv = *reinterpret_cast<const float4*>(b_s + j * Np + n0);
+      float4 xv = *reinterpret_cast<const float4*>(xh + j * Pp);
+      const float w = cf[j];
+      xv.x *= w; xv.y *= w; xv.z *= w; xv.w *= w;
+      const float bn[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] = fmaf(bn[i], xv.x, acc[i][0]);
+        acc[i][1] = fmaf(bn[i], xv.y, acc[i][1]);
+        acc[i][2] = fmaf(bn[i], xv.z, acc[i][2]);
+        acc[i][3] = fmaf(bn[i], xv.w, acc[i][3]);
       }
     }
-    __syncthreads();
-    const float total = cum_s[Q - 1];
-    if (tid < Q) {
-      ecum_s[tid] = expf(cum_s[tid]);
-      w_s[tid] = expf(total - cum_s[tid]);
+    float* out = S_loc + (((static_cast<long long>(b) * nc + c) * H + h0 +
+                           hl) * N) * P;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (n0 + i < N)
+        store4(out + (n0 + i) * P + p0,
+               make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]),
+               P - p0, vs);
+  }
+}
+
+// ---------------------------------------------------------------- phase 2
+// One thread per 4 consecutive elements of a (batch, head)'s N·P state.
+// h_in may be S_loc itself (in place): every chunk's S is loaded before
+// the h_in of that chunk is stored.
+__global__ void __launch_bounds__(kPassThreads)
+ssd_state_pass(const float* S_loc, const float* __restrict__ total,
+               float* h_in, float* __restrict__ state_out, int nc, int H,
+               int NP) {
+  const int bh = blockIdx.y;
+  const int b = bh / H, hd = bh - b * H;
+  const int e0 = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (e0 >= NP) return;
+  const int n = min(4, NP - e0);
+  const bool vec = (NP & 3) == 0;
+  const long long stride = static_cast<long long>(H) * NP;  // one chunk
+  const long long base = (static_cast<long long>(b) * nc * H + hd) * NP + e0;
+  const float* tot = total + static_cast<long long>(b) * nc * H + hd;
+  float h[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c0 = 0; c0 < nc; c0 += kPassBatch) {
+    float s[kPassBatch][4], e[kPassBatch];
+#pragma unroll
+    for (int k = 0; k < kPassBatch; ++k) {
+      if (c0 + k >= nc) continue;
+      const float* src = S_loc + base + (c0 + k) * stride;
+      if (vec) {
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        s[k][0] = v.x; s[k][1] = v.y; s[k][2] = v.z; s[k][3] = v.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[k][i] = i < n ? src[i] : 0.f;
+      }
+      e[k] = expf(tot[(c0 + k) * H]);
     }
-    for (int idx = tid; idx < Q * P; idx += kThreads)
-      xdt_s[idx] = x_s[idx] * dt_s[idx / P];
-    // ---- G = (C Bᵀ) ⊙ Γ, causal select
-    for (int idx = tid; idx < Q * Q; idx += kThreads) {
-      const int i = idx / Q, j = idx - i * Q;
+#pragma unroll
+    for (int k = 0; k < kPassBatch; ++k) {
+      if (c0 + k >= nc) continue;
+      store4(h_in + base + (c0 + k) * stride,
+             make_float4(h[0], h[1], h[2], h[3]), n, vec);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[i] = fmaf(e[k], h[i], s[k][i]);
+    }
+  }
+  if (state_out != nullptr)
+    store4(state_out + static_cast<long long>(bh) * NP + e0,
+           make_float4(h[0], h[1], h[2], h[3]), n, vec);
+}
+
+// ---------------------------------------------------------------- phase 3
+// Shared memory (float32), Qp = round4(Q), Pp = round4(P), lt = Qp + 4:
+//   Ct [N][lt], Bt [N][lt] (transposed, so that 4 steps are one float4),
+//   CBt [Qp][Qp] = (C Bᵀ)ᵀ, Gt [Qp][Qp] (this head's G, transposed),
+//   dt, cum, ecum [HG][Qp], and two buffers of (x [Q][Pp], h [N][Pp]).
+struct ScanSmem {
+  int Qp, Pp, lt;
+  size_t ct, bt, cbt, gt, dt, cum, ecum, ring, stage, total;
+  __host__ __device__ ScanSmem(int Q, int P, int N, int HG) {
+    Qp = round4(Q);
+    Pp = round4(P);
+    lt = Qp + 4;
+    ct = 0;
+    bt = ct + static_cast<size_t>(N) * lt;
+    cbt = bt + static_cast<size_t>(N) * lt;
+    gt = cbt + static_cast<size_t>(Qp) * Qp;
+    dt = gt + static_cast<size_t>(Qp) * Qp;
+    cum = dt + static_cast<size_t>(HG) * Qp;
+    ecum = cum + static_cast<size_t>(HG) * Qp;
+    ring = ecum + static_cast<size_t>(HG) * Qp;
+    stage = static_cast<size_t>(Qp) * Pp + static_cast<size_t>(N) * Pp;
+    total = ring + 2 * stage;
+  }
+};
+
+__global__ void __launch_bounds__(kScanThreads, 2)
+ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ A, const float* __restrict__ Bm,
+               const float* __restrict__ Cm, const float* __restrict__ Dv,
+               const float* __restrict__ h_in, float* __restrict__ y, int L,
+               int H, int P, int N, int Q, int HG, int vec_x) {
+  extern __shared__ __align__(16) float smem[];
+  const ScanSmem lay(Q, P, N, HG);
+  const int Qp = lay.Qp, Pp = lay.Pp, lt = lay.lt;
+  float* ct_s = smem + lay.ct;
+  float* bt_s = smem + lay.bt;
+  float* cbt_s = smem + lay.cbt;
+  float* gt_s = smem + lay.gt;
+  float* dt_s = smem + lay.dt;
+  float* cum_s = smem + lay.cum;
+  float* ecum_s = smem + lay.ecum;
+  float* ring = smem + lay.ring;
+
+  const int c = blockIdx.x, b = blockIdx.y, h0 = blockIdx.z * HG;
+  const int nh = min(HG, H - h0);
+  const int nc = L / Q;
+  const long long row0 = static_cast<long long>(b) * L + c * Q;
+  const bool vx = vec_x != 0;
+  const bool vy = (P & 3) == 0;
+
+  // this head's x [Q][Pp] and h_in [N][Pp] into buffer `st`
+  auto stage_head = [&](int hl, int st) {
+    float* xs = ring + st * lay.stage;
+    stage_rows(xs, Pp, x + (row0 * H + h0 + hl) * P,
+               static_cast<long long>(H) * P, Q, P, vx);
+    const float* hsrc = h_in + ((static_cast<long long>(b) * nc + c) * H +
+                                h0 + hl) * N * P;
+    stage_rows(xs + Qp * Pp, Pp, hsrc, P, N, P, vx);
+  };
+
+  for (int idx = threadIdx.x; idx < Q * N; idx += blockDim.x) {
+    const int t = idx / N, n = idx - t * N;
+    cp_async4(ct_s + n * lt + t, Cm + (row0 + t) * N + n);
+    cp_async4(bt_s + n * lt + t, Bm + (row0 + t) * N + n);
+  }
+  for (int idx = threadIdx.x; idx < nh * Q; idx += blockDim.x) {
+    const int hl = idx / Q, t = idx - hl * Q;
+    cp_async4(dt_s + hl * Qp + t, dt + (row0 + t) * H + h0 + hl);
+  }
+  stage_head(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // cumulative decay of every head of the group, one warp per head
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int hl = warp; hl < nh; hl += nwarps) {
+    float* cum = cum_s + hl * Qp;
+    warp_cumsum(dt_s + hl * Qp, A[h0 + hl], Q, cum);
+    __syncwarp();
+    for (int t = threadIdx.x & 31; t < Q; t += 32)
+      ecum_s[hl * Qp + t] = expf(cum[t]);
+  }
+  // (C Bᵀ)ᵀ on the tiles at or below the diagonal, 4 x 4 per thread
+  const int nt = Qp >> 2;
+  for (int item = threadIdx.x; item < nt * nt; item += blockDim.x) {
+    const int jt = item / nt, it = item - jt * nt;
+    if (jt > it) continue;
+    float acc[4][4] = {};
+    for (int n = 0; n < N; ++n) {
+      const float4 cv = *reinterpret_cast<const float4*>(ct_s + n * lt +
+                                                         4 * it);
+      const float4 bv = *reinterpret_cast<const float4*>(bt_s + n * lt +
+                                                         4 * jt);
+      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[q][0] = fmaf(cv.x, bj[q], acc[q][0]);
+        acc[q][1] = fmaf(cv.y, bj[q], acc[q][1]);
+        acc[q][2] = fmaf(cv.z, bj[q], acc[q][2]);
+        acc[q][3] = fmaf(cv.w, bj[q], acc[q][3]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<float4*>(cbt_s + (4 * jt + q) * Qp + 4 * it) =
+          make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+  }
+
+  const int ntp = Pp >> 2;
+  for (int hl = 0; hl < nh; ++hl) {
+    const int st = hl & 1;
+    cp_async_wait_all();
+    __syncthreads();   // head hl landed; every thread is done with hl - 1
+    if (hl + 1 < nh) stage_head(hl + 1, st ^ 1);
+    cp_async_commit();
+
+    // G (transposed), times dt_j: a select keeps exp off j > i
+    const float* cum = cum_s + hl * Qp;
+    const float* dth = dt_s + hl * Qp;
+    for (int idx = threadIdx.x; idx < Qp * Qp; idx += blockDim.x) {
+      const int j = idx / Qp, i = idx - j * Qp;
+      if ((j >> 2) > (i >> 2)) continue;
       float g = 0.f;
-      if (j <= i) {
-        const float* ci = c_s + i * ldn;
-        const float* bj = b_s + j * ldn;
-        float s = 0.f;
-        for (int n = 0; n < N; ++n) s = fmaf(ci[n], bj[n], s);
-        g = s * expf(cum_s[i] - cum_s[j]);
+      if (j <= i && i < Q)
+        g = cbt_s[idx] * expf(cum[i] - cum[j]) * dth[j];
+      gt_s[idx] = g;
+    }
+    __syncthreads();
+
+    // y [Q, P] in 4 x 4 register tiles: item = (i tile, p tile)
+    const float* xs = ring + st * lay.stage;
+    const float* hs = xs + Qp * Pp;
+    const float dskip = Dv[h0 + hl];
+    for (int item = threadIdx.x; item < nt * ntp; item += blockDim.x) {
+      const int it = item / ntp, p0 = (item - it * ntp) * 4;
+      const int i0 = 4 * it;
+      float acc[4][4] = {}, inter[4][4] = {};
+      const int jend = min(i0 + 4, Q);
+      for (int j = 0; j < jend; ++j) {
+        const float4 gv = *reinterpret_cast<const float4*>(gt_s + j * Qp +
+                                                           i0);
+        const float4 xv = *reinterpret_cast<const float4*>(xs + j * Pp + p0);
+        const float gi[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[q][0] = fmaf(gi[q], xv.x, acc[q][0]);
+          acc[q][1] = fmaf(gi[q], xv.y, acc[q][1]);
+          acc[q][2] = fmaf(gi[q], xv.z, acc[q][2]);
+          acc[q][3] = fmaf(gi[q], xv.w, acc[q][3]);
+        }
       }
-      g_s[i * ldq + j] = g;
+      for (int n = 0; n < N; ++n) {
+        const float4 cv = *reinterpret_cast<const float4*>(ct_s + n * lt +
+                                                           i0);
+        const float4 hv = *reinterpret_cast<const float4*>(hs + n * Pp + p0);
+        const float ci[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          inter[q][0] = fmaf(ci[q], hv.x, inter[q][0]);
+          inter[q][1] = fmaf(ci[q], hv.y, inter[q][1]);
+          inter[q][2] = fmaf(ci[q], hv.z, inter[q][2]);
+          inter[q][3] = fmaf(ci[q], hv.w, inter[q][3]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = i0 + q;
+        if (i >= Q) break;
+        const float e = ecum_s[hl * Qp + i];
+        const float4 xv = *reinterpret_cast<const float4*>(xs + i * Pp + p0);
+        const float xi[4] = {xv.x, xv.y, xv.z, xv.w};
+        float o[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          o[k] = (acc[q][k] + e * inter[q][k]) + dskip * xi[k];
+        store4(y + ((row0 + i) * H + h0 + hl) * P + p0,
+               make_float4(o[0], o[1], o[2], o[3]), P - p0, vy);
+      }
     }
-    __syncthreads();
-    // ---- y = G (dt x) + (C ⊙ exp(cum)) S + D x
-    for (int idx = tid; idx < Q * P; idx += kThreads) {
-      const int i = idx / P, p = idx - i * P;
-      const float* gi = g_s + i * ldq;
-      float acc = 0.f;
-      for (int j = 0; j <= i; ++j) acc = fmaf(gi[j], xdt_s[j * P + p], acc);
-      const float* ci = c_s + i * ldn;
-      const float e = ecum_s[i];
-      float inter = 0.f;
-      for (int n = 0; n < N; ++n)
-        inter = fmaf(ci[n] * e, st_s[n * P + p], inter);
-      acc = acc + inter;
-      acc = acc + dskip * x_s[idx];
-      y[((t0 + i) * H + h) * P + p] = acc;
-    }
-    __syncthreads();
-    // ---- S = exp(total) S + (B ⊙ w)ᵀ (dt x)
-    const float etot = expf(total);
-    for (int idx = tid; idx < N * P; idx += kThreads) {
-      const int n = idx / P, p = idx - n * P;
-      float acc = 0.f;
-      for (int i = 0; i < Q; ++i)
-        acc = fmaf(b_s[i * ldn + n] * w_s[i], xdt_s[i * P + p], acc);
-      st_s[idx] = etot * st_s[idx] + acc;
-    }
-    __syncthreads();
   }
-  if (state_out != nullptr) {
-    float* out = state_out + (static_cast<long long>(b) * H + h) * N * P;
-    for (int idx = tid; idx < N * P; idx += kThreads) out[idx] = st_s[idx];
+}
+
+size_t state_smem(int Q, int P, int N, int HG) {
+  return (static_cast<size_t>(Q) * round4(N) +
+          static_cast<size_t>(HG) * Q * round4(P) + 2 * HG * Q) *
+         sizeof(float);
+}
+
+// Heads per chunk_state block: enough 4 x 4 tiles for the block's
+// threads, within 64 KB of shared memory.
+int state_group(int H, int P, int N, int Q) {
+  const int per_head = (round4(N) / 4) * (round4(P) / 4);
+  int hg = (kStateThreads + per_head - 1) / per_head;
+  hg = hg < H ? hg : H;
+  while (hg > 1 && state_smem(Q, P, N, hg) > 64 * 1024) --hg;
+  return hg;
+}
+
+// Heads per chunk_scan block: C Bᵀ is shared by the group, so the group
+// is as large as keeps about 4 blocks per SM of a 132-SM card in the
+// grid (at most 8), then the size in the upper half of that range that
+// leaves the fewest empty head slots in the last group.
+int scan_group(int Bt, int nc, int H) {
+  long long cap = static_cast<long long>(Bt) * nc * H / (4 * 132);
+  int hmax = static_cast<int>(cap < 1 ? 1 : cap > 8 ? 8 : cap);
+  hmax = hmax < H ? hmax : H;
+  int best = hmax, waste = (H + hmax - 1) / hmax * hmax - H;
+  for (int g = hmax - 1; g >= (hmax + 1) / 2; --g) {
+    const int w = (H + g - 1) / g * g - H;
+    if (w < waste) best = g, waste = w;
   }
+  return best;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+int bad_shape(int Bt, int L, int H, int P, int N, int Q) {
+  return Bt <= 0 || L <= 0 || H <= 0 || P <= 0 || N <= 0 || Q <= 0 ||
+         Q > kMaxChunk || L % Q != 0;
+}
+
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes > static_cast<size_t>(kSmemLimit)) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  Every tensor is contiguous
+// Plain C entry points, loaded with ctypes.  Every tensor is contiguous
 // float32: x, y [Bt, L, H, P]; dt [Bt, L, H]; A, D [H]; B, C [Bt, L, N];
-// state_out [Bt, H, N, P] or null.  Launches on `stream`, allocates
-// nothing, does not synchronise; returns cudaGetLastError() (0 on
-// success).  The caller guarantees Bt, L, H, P, N > 0, 0 < Q <= 64 and
-// L % Q == 0.
-extern "C" int ssd_launch(const void* x, const void* dt, const void* A,
-                          const void* B, const void* C, const void* D,
-                          void* y, void* state_out, int Bt, int L, int H,
-                          int P, int N, int Q, void* stream) {
-  if (Bt <= 0 || L <= 0 || H <= 0 || P <= 0 || N <= 0 || Q <= 0 ||
-      Q > kMaxChunk || L % Q != 0)
+// S_loc / h_in [Bt, nc, H, N, P]; total [Bt, nc, H]; state_out
+// [Bt, H, N, P] or null (nc = L / Q).  Each launches one kernel on
+// `stream`, allocates nothing, does not synchronise, and returns
+// cudaGetLastError() (0 on success; cudaErrorInvalidValue for a shape it
+// does not take or shared memory it cannot have).
+
+extern "C" int ssd_chunk_state_launch(const void* x, const void* dt,
+                                      const void* A, const void* B,
+                                      void* S_loc, void* total, int Bt,
+                                      int L, int H, int P, int N, int Q,
+                                      void* stream) {
+  if (bad_shape(Bt, L, H, P, N, Q))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      (2 * Q * P + 2 * Q * (N + 1) + Q * (Q + 1) + N * P + 4 * Q) *
-      sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  ssd_kernel<<<Bt * H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int hg = state_group(H, P, N, Q);
+  const size_t smem = state_smem(Q, P, N, hg);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(ssd_chunk_state),
+                             smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int vec = (P % 4 == 0) && aligned16(x);
+  const dim3 grid(L / Q, Bt, (H + hg - 1) / hg);
+  ssd_chunk_state<<<grid, kStateThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(B),
+      static_cast<float*>(S_loc), static_cast<float*>(total), L, H, P, N, Q,
+      hg, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ssd_state_pass_launch(void* S_loc, const void* total,
+                                     void* state_out, int Bt, int nc,
+                                     int H, int N, int P, void* stream) {
+  if (Bt <= 0 || nc <= 0 || H <= 0 || N <= 0 || P <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int NP = N * P;
+  const int per_block = kPassThreads * 4;
+  const dim3 grid((NP + per_block - 1) / per_block, Bt * H);
+  ssd_state_pass<<<grid, kPassThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(S_loc), static_cast<const float*>(total),
+      static_cast<float*>(S_loc), static_cast<float*>(state_out), nc, H, NP);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ssd_chunk_scan_launch(const void* x, const void* dt,
+                                     const void* A, const void* B,
+                                     const void* C, const void* D,
+                                     const void* h_in, void* y, int Bt,
+                                     int L, int H, int P, int N, int Q,
+                                     void* stream) {
+  if (bad_shape(Bt, L, H, P, N, Q))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = L / Q;
+  const int hg = scan_group(Bt, nc, H);
+  const ScanSmem lay(Q, P, N, hg);
+  const size_t smem = lay.total * sizeof(float);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(ssd_chunk_scan),
+                             smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int vec = (P % 4 == 0) && aligned16(x) && aligned16(h_in);
+  const int tiles = (lay.Qp / 4) * (lay.Pp / 4);
+  int threads = (tiles + 31) / 32 * 32;
+  threads = threads < 64 ? 64 : threads > kScanThreads ? kScanThreads
+                                                       : threads;
+  const dim3 grid(nc, Bt, (H + hg - 1) / hg);
+  ssd_chunk_scan<<<grid, threads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(B),
       static_cast<const float*>(C), static_cast<const float*>(D),
-      static_cast<float*>(y), static_cast<float*>(state_out), L, H, P, N, Q);
+      static_cast<const float*>(h_in), static_cast<float*>(y), L, H, P, N,
+      Q, hg, vec);
   return static_cast<int>(cudaGetLastError());
 }

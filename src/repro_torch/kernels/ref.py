@@ -4,8 +4,9 @@ They compute what the reference package's oracles compute
 (``attention_ref``, ``ssd_ref``, ``ssd_chunked``, and the sequential
 final-state scan of ``models/ssm.py``), in the same layouts; beside
 them, the plain versions of the decode route's two kernels
-(``attention_partials``, ``combine_splits``).  The CPU
-path and the tests use them; on the card the wrappers in
+(``attention_partials``, ``combine_splits``) and of the SSD scan's
+three phases (``ssd_chunk_states``, ``ssd_pass_states``,
+``ssd_chunk_scan``).  The CPU path and the tests use them; on the card the wrappers in
 ``flash_attention.py`` and ``ssd.py`` launch the CUDA kernels instead,
 and ``chip_smoke.py`` holds each kernel against these.
 """
@@ -193,6 +194,75 @@ def ssd_chunked(x, dt, A, B, C, D=None, chunk=64):
     h_in = torch.stack(h_in, dim=1)                     # [b,c,h,n,p]
     y = y + torch.einsum("bcin,bcih,bchnp->bcihp", Cf, torch.exp(cum), h_in)
 
+    y = y.reshape(Bt, L, H, P)
+    if D is not None:
+        y = y + D.to(F32)[None, None, :, None] * x.to(F32)
+    return y.to(x.dtype)
+
+
+# The three phases of the CUDA kernel (``kernels/csrc/ssd.cu``), written
+# from ``ssd_chunked``'s own steps: composed, they give its ``y`` and
+# the final state.
+def _chunk_cum(dt, A, Q):
+    """Inclusive cumulative decay ``cum f32[Bt, nc, Q, H]`` of each
+    chunk and its total ``f32[Bt, nc, H]``."""
+    Bt, L, H = dt.shape
+    da = dt.to(F32).reshape(Bt, L // Q, Q, H) * A.to(F32)[None, None, None]
+    cum = torch.cumsum(da, dim=2)
+    return cum, cum[:, :, -1, :]
+
+
+def ssd_chunk_states(x, dt, A, B, chunk=64):
+    """Phase 1: the state each chunk emits on its own,
+    ``S_c = Σ_j exp(total − cum_j) B_j (dt x)_j`` as
+    ``f32[Bt, nc, H, N, P]``, and the chunk totals ``f32[Bt, nc, H]``."""
+    Bt, L, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, L)
+    assert L % Q == 0, (L, Q)
+    nc = L // Q
+    cum, total = _chunk_cum(dt, A, Q)
+    xdt = (x.to(F32) * dt.to(F32)[..., None]).reshape(Bt, nc, Q, H, P)
+    w = torch.exp(total[:, :, None, :] - cum)                # [b,c,q,h]
+    S = torch.einsum("bcjn,bcjh,bcjhp->bchnp",
+                     B.to(F32).reshape(Bt, nc, Q, N), w, xdt)
+    return S, total
+
+
+def ssd_pass_states(S_loc, total):
+    """Phase 2: the state entering each chunk, ``h_in f32[Bt, nc, H, N,
+    P]`` (zero for the first), and the state after the last, by
+    ``h = exp(total_c) h + S_c`` in chunk order."""
+    h = torch.zeros_like(S_loc[:, 0])
+    decay = torch.exp(total)
+    h_in = []
+    for c in range(S_loc.shape[1]):
+        h_in.append(h)
+        h = h * decay[:, c, :, None, None] + S_loc[:, c]
+    return torch.stack(h_in, dim=1), h
+
+
+def ssd_chunk_scan(x, dt, A, B, C, D, h_in, chunk=64):
+    """Phase 3: ``y = G (dt x) + (C ⊙ exp(cum)) h_in + D x`` per chunk,
+    ``G = C Bᵀ ⊙ Γ`` with Γ by a select as in ``ssd_chunked``; ``y`` in
+    x's dtype."""
+    Bt, L, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, L)
+    assert L % Q == 0, (L, Q)
+    nc = L // Q
+    cum, _ = _chunk_cum(dt, A, Q)
+    Cf = C.to(F32).reshape(Bt, nc, Q, N)
+    tril = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [b,c,i,j,h]
+    gamma = torch.where(tril[None, None, :, :, None], torch.exp(diff),
+                        torch.zeros((), dtype=F32, device=x.device))
+    scores = torch.einsum("bcin,bcjn->bcij", Cf,
+                          B.to(F32).reshape(Bt, nc, Q, N))
+    xdt = (x.to(F32) * dt.to(F32)[..., None]).reshape(Bt, nc, Q, H, P)
+    g = (scores[..., None] * gamma).permute(0, 1, 4, 2, 3)   # [b,c,h,i,j]
+    y = torch.matmul(g, xdt.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
+    y = y + torch.einsum("bcin,bcih,bchnp->bcihp", Cf, torch.exp(cum), h_in)
     y = y.reshape(Bt, L, H, P)
     if D is not None:
         y = y + D.to(F32)[None, None, :, None] * x.to(F32)
