@@ -7,8 +7,9 @@ version.  Sources live in ``csrc/``; ``_build`` compiles them with
   ``repro_torch.kernels.waterfill.waterfill``.
 * ``flash_attention`` — K2, GQA attention with causal and sliding-window
   masks (replaces ``repro/kernels/flash_attention.py::_flash_kernel``).
-* ``ssd`` — K3, the Mamba-2 SSD chunked scan (replaces
-  ``repro/kernels/ssd.py::_ssd_kernel``).
+* ``ssd`` — K3, the Mamba-2 SSD chunked scan as three chunk-parallel
+  kernels, ``ssd_chunk_state``, ``ssd_state_pass`` and
+  ``ssd_chunk_scan`` (replaces ``repro/kernels/ssd.py::_ssd_kernel``).
 
 ``ops.attention`` and ``ops.ssd`` dispatch K2 and K3 by device; ``ref``
 holds their plain versions."""

@@ -32,27 +32,32 @@
 // TFLOP/s).  The three phases move about 315 MB: x is read twice
 // (2 × 78.6 MB), y written once (78.6 MB), and S_loc is written, read
 // and rewritten as h_in, then read again (4 × 19.7 MB, of which about
-// 79 MB can hit the 50 MB L2, since the pass follows the phase that
+// 79 MB can hit the 50 MB L2, since each phase follows the one that
 // wrote them).  What the design does about it:
 //   * every block is one (batch, chunk, head group): 960 blocks of
 //     chunk_scan at Hymba's shape against the 200 of a block per
 //     (batch, head) walking 24 chunks;
-//   * every product runs on register tiles: a thread owns 4 x 4 outputs
-//     (of S [N, P], of C Bᵀ, of y [Q, P]) and reads both operands as
-//     float4 from shared memory, 16 FMAs per two loads;
+//   * no product reads both operands from shared memory per
+//     multiply-add: chunk_state's S [N, P] and C Bᵀ are float32 FFMA on
+//     4 x 4 register tiles (float4 operands, 16 FMAs per two loads);
+//     y's two products, G x and C h_in, run on the tensor cores as
+//     3xTF32 mma.sync (see split_tf32), a warp owning 16 rows by 32
+//     columns of y;
 //   * C Bᵀ is formed once per block and reused by every head of the
 //     group (B and C are one group, shared by all heads);
 //   * x, h_in, B, C and dt arrive by cp.async; in chunk_scan the next
-//     head's x and h_in stream into a second buffer while this head
-//     computes;
+//     head's x and h_in stream into a second buffer, and its G is
+//     formed into a second buffer, while this head's products run (one
+//     barrier per head);
 //   * the cumulative decay is a warp scan (__shfl_up_sync), one warp per
 //     head.
-// The products are float32 FFMA (explicit fmaf: the port builds with
-// --fmad=false), so the scan keeps its 1e-4 agreement with the plain
-// versions.  Shapes: 0 < Q <= 64, L % Q == 0, any P and N that shared
-// memory holds; Q, N and P off a multiple of 4 are padded in shared
-// memory and masked on store, and 4-byte copies stand in for 16-byte
-// ones where rows are not 16-byte aligned.
+// Accumulation is float32 throughout (explicit fmaf: the port builds
+// with --fmad=false), so the scan keeps its 1e-4 agreement with the
+// plain versions.  Shapes: 0 < Q <= 64, L % Q == 0, any P and N that
+// shared memory holds (N = 128 at P = 64 takes 221 KB in chunk_scan);
+// Q, N and P off the tile are padded in shared memory (zero along the
+// products' k) and masked on store, and 4-byte copies stand in for
+// 16-byte ones where rows are not 16-byte aligned.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,7 +67,12 @@ namespace {
 constexpr int kMaxChunk = 64;
 constexpr int kStateThreads = 128;   // ssd_chunk_state
 constexpr int kPassThreads = 128;    // ssd_state_pass
-constexpr int kScanThreads = 256;    // ssd_chunk_scan, at most
+constexpr int kScanThreads = 256;    // ssd_chunk_scan
+// a warp's unit of y in chunk_scan: kScanNT n tiles of 8 columns, over
+// one 16-row tile, or two (m, MT-1-m) when kScanPairs, so that the causal
+// work of the warps is even
+constexpr int kScanNT = 4;
+constexpr bool kScanPairs = false;
 constexpr int kPassBatch = 8;        // chunks loaded ahead in the pass
 constexpr int kSmemLimit = 227 * 1024;
 
@@ -274,26 +284,113 @@ ssd_state_pass(const float* S_loc, const float* __restrict__ total,
 }
 
 // ---------------------------------------------------------------- phase 3
-// Shared memory (float32), Qp = round4(Q), Pp = round4(P), lt = Qp + 4:
-//   Ct [N][lt], Bt [N][lt] (transposed, so that 4 steps are one float4),
-//   CBt [Qp][Qp] = (C Bᵀ)ᵀ, Gt [Qp][Qp] (this head's G, transposed),
-//   dt, cum, ecum [HG][Qp], and two buffers of (x [Q][Pp], h [N][Pp]).
+// The products of y run on the tensor cores as 3xTF32: each operand is
+// split into hi = tf32(a) and lo = a - hi, and a·b is taken as
+// lo·hi + hi·lo + hi·hi (mma.sync.m16n8k8, float32 accumulators), which
+// keeps float32's accuracy; the dropped lo·lo term is below its
+// rounding.  hi is rounded to tf32 with integer operations (add half a
+// tf32 unit, clear the 13 low bits), not cvt.rna.tf32.f32, which issues
+// at the conversion rate; the tensor cores read lo's top 19 bits and
+// drop the rest, which costs lo, and so a·b, about 2^-21 relative.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A[r0:r0+16, 0:kend] B[0:kend, c0+8nn : c0+8nn+8], nn < NT, by one warp
+// (kend % 8 == 0): the hi·hi products into acc[nn], the two small
+// lo·hi + hi·lo products into low[nn] (two short chains in place of one
+// of three; the caller adds low to acc last).  A[r][k] is a[r * lda + k],
+// or a[k * lda + r] when kAT (stored transposed); B[k][c] is b[k * ldb +
+// c].
+template <bool kAT, int NT>
+__device__ __forceinline__ void mma_rows(float (&acc)[NT][4],
+                                         float (&low)[NT][4], const float* a,
+                                         int lda, const float* b, int ldb,
+                                         int r0, int c0, int kend) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < kend; k += 8) {
+    float av[4];
+    if (kAT) {
+      av[0] = a[(k + t) * lda + r0 + g];
+      av[1] = a[(k + t) * lda + r0 + g + 8];
+      av[2] = a[(k + t + 4) * lda + r0 + g];
+      av[3] = a[(k + t + 4) * lda + r0 + g + 8];
+    } else {
+      av[0] = a[(r0 + g) * lda + k + t];
+      av[1] = a[(r0 + g + 8) * lda + k + t];
+      av[2] = a[(r0 + g) * lda + k + t + 4];
+      av[3] = a[(r0 + g + 8) * lda + k + t + 4];
+    }
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split_tf32(av[q], ah[q], al[q]);
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn) {
+      const float* bc = b + c0 + 8 * nn + g;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(bc[(k + t) * ldb], bh0, bl0);
+      split_tf32(bc[(k + t + 4) * ldb], bh1, bl1);
+      mma_tf32(low[nn], al, bh0, bh1);
+      mma_tf32(low[nn], ah, bl0, bl1);
+      mma_tf32(acc[nn], ah, bh0, bh1);
+    }
+  }
+}
+
+__host__ __device__ __forceinline__ int round8(int v) { return (v + 7) & ~7; }
+__host__ __device__ __forceinline__ int round16(int v) {
+  return (v + 15) & ~15;
+}
+
+// Shared memory (float32), Qp = round4(Q), Q8/Q16 = Q rounded up to 8/16,
+// N8 = round8(N), Pw = P rounded up to a warp unit's 8 kScanNT columns:
+//   Ct [N8][lt], lt = Q16 + 8 (C transposed: 4 steps are one float4 for
+//     C Bᵀ, and Ct is the A operand of C h_in);
+//   Bt [N][lt] (B transposed), which is dead once C Bᵀ is formed, and
+//     shares its space with G1;
+//   CB [Qp][Qp] = C Bᵀ (row-major, so that G's rows read it along j);
+//   G0, G1 [Q16][lg], lg = Q8 + 4: G ⊙ dt_j of heads 0, 2, 4 ... and
+//     1, 3, 5 ... (row-major: the A operand of G x), so that one head's
+//     G is formed while the products of the head before it run;
+//   dt, cum, ecum [HG][Qp];
+//   two buffers of x [Q8][lx] and h_in [N8][lx], lx = Pw + 8.
+// The row strides put the 32 lanes of a fragment load on 32 banks.  The
+// k padding (rows Q..Q8 of x, N..N8 of Ct and h_in, columns Q..Q8 of G)
+// is zero; other padding only reaches outputs that are not stored.
 struct ScanSmem {
-  int Qp, Pp, lt;
-  size_t ct, bt, cbt, gt, dt, cum, ecum, ring, stage, total;
+  int Qp, Q8, Q16, N8, Pw, lt, lg, lx;
+  size_t ct, bt, cb, g0, dt, cum, ecum, ring, stage, total;
   __host__ __device__ ScanSmem(int Q, int P, int N, int HG) {
     Qp = round4(Q);
-    Pp = round4(P);
-    lt = Qp + 4;
+    Q8 = round8(Q);
+    Q16 = round16(Q);
+    N8 = round8(N);
+    Pw = (P + 8 * kScanNT - 1) / (8 * kScanNT) * (8 * kScanNT);
+    lt = Q16 + 8;
+    lg = Q8 + 4;
+    lx = Pw + 8;
     ct = 0;
-    bt = ct + static_cast<size_t>(N) * lt;
-    cbt = bt + static_cast<size_t>(N) * lt;
-    gt = cbt + static_cast<size_t>(Qp) * Qp;
-    dt = gt + static_cast<size_t>(Qp) * Qp;
+    bt = ct + static_cast<size_t>(N8) * lt;
+    const size_t g_size = static_cast<size_t>(Q16) * lg;
+    const size_t bt_size = static_cast<size_t>(N) * lt;
+    cb = bt + (bt_size > g_size ? bt_size : g_size);
+    g0 = cb + static_cast<size_t>(Qp) * Qp;
+    dt = g0 + g_size;
     cum = dt + static_cast<size_t>(HG) * Qp;
     ecum = cum + static_cast<size_t>(HG) * Qp;
     ring = ecum + static_cast<size_t>(HG) * Qp;
-    stage = static_cast<size_t>(Qp) * Pp + static_cast<size_t>(N) * Pp;
+    stage = static_cast<size_t>(Q8 + N8) * lx;
     total = ring + 2 * stage;
   }
 };
@@ -306,11 +403,11 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
                int H, int P, int N, int Q, int HG, int vec_x) {
   extern __shared__ __align__(16) float smem[];
   const ScanSmem lay(Q, P, N, HG);
-  const int Qp = lay.Qp, Pp = lay.Pp, lt = lay.lt;
+  const int Qp = lay.Qp, Q8 = lay.Q8, lt = lay.lt, lg = lay.lg, lx = lay.lx;
   float* ct_s = smem + lay.ct;
   float* bt_s = smem + lay.bt;
-  float* cbt_s = smem + lay.cbt;
-  float* gt_s = smem + lay.gt;
+  float* cb_s = smem + lay.cb;
+  float* const g_buf[2] = {smem + lay.g0, smem + lay.bt};
   float* dt_s = smem + lay.dt;
   float* cum_s = smem + lay.cum;
   float* ecum_s = smem + lay.ecum;
@@ -323,16 +420,26 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
   const bool vx = vec_x != 0;
   const bool vy = (P & 3) == 0;
 
-  // this head's x [Q][Pp] and h_in [N][Pp] into buffer `st`
+  // this head's x [Q][P] and h_in [N][P] into buffer `st`
   auto stage_head = [&](int hl, int st) {
     float* xs = ring + st * lay.stage;
-    stage_rows(xs, Pp, x + (row0 * H + h0 + hl) * P,
+    stage_rows(xs, lx, x + (row0 * H + h0 + hl) * P,
                static_cast<long long>(H) * P, Q, P, vx);
     const float* hsrc = h_in + ((static_cast<long long>(b) * nc + c) * H +
                                 h0 + hl) * N * P;
-    stage_rows(xs + Qp * Pp, Pp, hsrc, P, N, P, vx);
+    stage_rows(xs + Q8 * lx, lx, hsrc, P, N, P, vx);
   };
 
+  // the k padding, which no copy writes, is zero in both buffers
+  for (int st = 0; st < 2; ++st) {
+    float* xs = ring + st * lay.stage;
+    for (int idx = threadIdx.x; idx < (Q8 - Q) * lx; idx += blockDim.x)
+      xs[Q * lx + idx] = 0.f;
+    for (int idx = threadIdx.x; idx < (lay.N8 - N) * lx; idx += blockDim.x)
+      xs[(Q8 + N) * lx + idx] = 0.f;
+  }
+  for (int idx = threadIdx.x; idx < (lay.N8 - N) * lt; idx += blockDim.x)
+    ct_s[N * lt + idx] = 0.f;
   for (int idx = threadIdx.x; idx < Q * N; idx += blockDim.x) {
     const int t = idx / N, n = idx - t * N;
     cp_async4(ct_s + n * lt + t, Cm + (row0 + t) * N + n);
@@ -356,7 +463,7 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
     for (int t = threadIdx.x & 31; t < Q; t += 32)
       ecum_s[hl * Qp + t] = expf(cum[t]);
   }
-  // (C Bᵀ)ᵀ on the tiles at or below the diagonal, 4 x 4 per thread
+  // C Bᵀ on the tiles at or below the diagonal, 4 x 4 per thread
   const int nt = Qp >> 2;
   for (int item = threadIdx.x; item < nt * nt; item += blockDim.x) {
     const int jt = item / nt, it = item - jt * nt;
@@ -377,80 +484,110 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
       }
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      *reinterpret_cast<float4*>(cbt_s + (4 * jt + q) * Qp + 4 * it) =
-          make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+    for (int k = 0; k < 4; ++k)
+      *reinterpret_cast<float4*>(cb_s + (4 * it + k) * Qp + 4 * jt) =
+          make_float4(acc[0][k], acc[1][k], acc[2][k], acc[3][k]);
   }
 
-  const int ntp = Pp >> 2;
+  // warp units: kScanNT n tiles of y over one or two 16-row tiles
+  constexpr int kCols = 8 * kScanNT;
+  const int MT = lay.Q16 >> 4;
+  const int per_col = kScanPairs ? (MT + 1) >> 1 : MT;
+  const int units = per_col * (lay.Pw / kCols);
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  // G ⊙ dt_j of head hl into `g_s`, on the 16-row tiles up to their
+  // diagonal, 4 columns per lane, a half warp per row; a select keeps
+  // exp off j > i
+  auto form_g = [&](int hl, float* g_s) {
+    const float* cum = cum_s + hl * Qp;
+    const float* dth = dt_s + hl * Qp;
+    for (int i = 2 * warp + (lane >> 4); i < lay.Q16; i += 2 * nwarps) {
+      const int j0 = (lane & 15) * 4;
+      if (j0 >= min((i & ~15) + 16, Q8)) continue;
+      float gv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (i < Q && j0 <= i) {
+        const float4 cb4 = *reinterpret_cast<const float4*>(cb_s + i * Qp +
+                                                            j0);
+        const float4 cm4 = *reinterpret_cast<const float4*>(cum + j0);
+        const float4 dt4 = *reinterpret_cast<const float4*>(dth + j0);
+        const float cbv[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+        const float cmv[4] = {cm4.x, cm4.y, cm4.z, cm4.w};
+        const float dtv[4] = {dt4.x, dt4.y, dt4.z, dt4.w};
+        const float ci = cum[i];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (j0 + k <= i) gv[k] = cbv[k] * expf(ci - cmv[k]) * dtv[k];
+      }
+      *reinterpret_cast<float4*>(g_s + i * lg + j0) =
+          make_float4(gv[0], gv[1], gv[2], gv[3]);
+    }
+  };
+  __syncthreads();   // C Bᵀ and cum are complete; Bt is dead
+  form_g(0, g_buf[0]);
+
   for (int hl = 0; hl < nh; ++hl) {
     const int st = hl & 1;
     cp_async_wait_all();
-    __syncthreads();   // head hl landed; every thread is done with hl - 1
-    if (hl + 1 < nh) stage_head(hl + 1, st ^ 1);
-    cp_async_commit();
-
-    // G (transposed), times dt_j: a select keeps exp off j > i
-    const float* cum = cum_s + hl * Qp;
-    const float* dth = dt_s + hl * Qp;
-    for (int idx = threadIdx.x; idx < Qp * Qp; idx += blockDim.x) {
-      const int j = idx / Qp, i = idx - j * Qp;
-      if ((j >> 2) > (i >> 2)) continue;
-      float g = 0.f;
-      if (j <= i && i < Q)
-        g = cbt_s[idx] * expf(cum[i] - cum[j]) * dth[j];
-      gt_s[idx] = g;
-    }
+    // head hl's x, h_in and G are complete; every thread is done with
+    // head hl - 1, whose buffers the next head takes
     __syncthreads();
-
-    // y [Q, P] in 4 x 4 register tiles: item = (i tile, p tile)
+    if (hl + 1 < nh) {
+      stage_head(hl + 1, st ^ 1);
+      cp_async_commit();
+      form_g(hl + 1, g_buf[st ^ 1]);
+    }
+    const float* g_s = g_buf[st];
     const float* xs = ring + st * lay.stage;
-    const float* hs = xs + Qp * Pp;
+    const float* hs = xs + Q8 * lx;
     const float dskip = Dv[h0 + hl];
-    for (int item = threadIdx.x; item < nt * ntp; item += blockDim.x) {
-      const int it = item / ntp, p0 = (item - it * ntp) * 4;
-      const int i0 = 4 * it;
-      float acc[4][4] = {}, inter[4][4] = {};
-      const int jend = min(i0 + 4, Q);
-      for (int j = 0; j < jend; ++j) {
-        const float4 gv = *reinterpret_cast<const float4*>(gt_s + j * Qp +
-                                                           i0);
-        const float4 xv = *reinterpret_cast<const float4*>(xs + j * Pp + p0);
-        const float gi[4] = {gv.x, gv.y, gv.z, gv.w};
+    const float* ecum = ecum_s + hl * Qp;
+    for (int u = warp; u < units; u += nwarps) {
+      const int c0 = (u / per_col) * kCols, m = u % per_col;
+      for (int side = 0; side < (kScanPairs ? 2 : 1); ++side) {
+        const int mt = side == 0 ? m : MT - 1 - m;
+        if (side == 1 && mt == m) break;
+        const int r0 = mt * 16;
+        float intra[kScanNT][4] = {}, inter[kScanNT][4] = {};
+        {
+          float low[kScanNT][4] = {};
+          mma_rows<false, kScanNT>(intra, low, g_s, lg, xs, lx, r0, c0,
+                                   min(r0 + 16, Q8));
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc[q][0] = fmaf(gi[q], xv.x, acc[q][0]);
-          acc[q][1] = fmaf(gi[q], xv.y, acc[q][1]);
-          acc[q][2] = fmaf(gi[q], xv.z, acc[q][2]);
-          acc[q][3] = fmaf(gi[q], xv.w, acc[q][3]);
+          for (int nn = 0; nn < kScanNT; ++nn)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) intra[nn][k] += low[nn][k];
         }
-      }
-      for (int n = 0; n < N; ++n) {
-        const float4 cv = *reinterpret_cast<const float4*>(ct_s + n * lt +
-                                                           i0);
-        const float4 hv = *reinterpret_cast<const float4*>(hs + n * Pp + p0);
-        const float ci[4] = {cv.x, cv.y, cv.z, cv.w};
+        {
+          float low[kScanNT][4] = {};
+          mma_rows<true, kScanNT>(inter, low, ct_s, lt, hs, lx, r0, c0,
+                                  lay.N8);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          inter[q][0] = fmaf(ci[q], hv.x, inter[q][0]);
-          inter[q][1] = fmaf(ci[q], hv.y, inter[q][1]);
-          inter[q][2] = fmaf(ci[q], hv.z, inter[q][2]);
-          inter[q][3] = fmaf(ci[q], hv.w, inter[q][3]);
+          for (int nn = 0; nn < kScanNT; ++nn)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) inter[nn][k] += low[nn][k];
         }
-      }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + q;
-        if (i >= Q) break;
-        const float e = ecum_s[hl * Qp + i];
-        const float4 xv = *reinterpret_cast<const float4*>(xs + i * Pp + p0);
-        const float xi[4] = {xv.x, xv.y, xv.z, xv.w};
-        float o[4];
+        for (int nn = 0; nn < kScanNT; ++nn) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          o[k] = (acc[q][k] + e * inter[q][k]) + dskip * xi[k];
-        store4(y + ((row0 + i) * H + h0 + hl) * P + p0,
-               make_float4(o[0], o[1], o[2], o[3]), P - p0, vy);
+          for (int hr = 0; hr < 2; ++hr) {
+            const int i = r0 + gq + 8 * hr;
+            const int p = c0 + 8 * nn + 2 * tq;
+            if (i >= Q || p >= P) continue;
+            const float e = ecum[i];
+            float o[2];
+#pragma unroll
+            for (int k = 0; k < 2; ++k)
+              o[k] = (intra[nn][2 * hr + k] + e * inter[nn][2 * hr + k]) +
+                     dskip * xs[i * lx + p + k];
+            float* dst = y + ((row0 + i) * H + h0 + hl) * P + p;
+            if (vy) {
+              *reinterpret_cast<float2*>(dst) = make_float2(o[0], o[1]);
+            } else {
+              dst[0] = o[0];
+              if (p + 1 < P) dst[1] = o[1];
+            }
+          }
+        }
       }
     }
   }
@@ -569,12 +706,8 @@ extern "C" int ssd_chunk_scan_launch(const void* x, const void* dt,
                              smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int vec = (P % 4 == 0) && aligned16(x) && aligned16(h_in);
-  const int tiles = (lay.Qp / 4) * (lay.Pp / 4);
-  int threads = (tiles + 31) / 32 * 32;
-  threads = threads < 64 ? 64 : threads > kScanThreads ? kScanThreads
-                                                       : threads;
   const dim3 grid(nc, Bt, (H + hg - 1) / hg);
-  ssd_chunk_scan<<<grid, threads, smem,
+  ssd_chunk_scan<<<grid, kScanThreads, smem,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(B),

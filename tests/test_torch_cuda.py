@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels (the
 waterfill K1, flash attention K2 on each of its routes, the SSD scan
-K3) against their plain PyTorch versions, their launch counters and
+K3 whole and each of its three kernels alone) against their plain
+PyTorch versions, their launch counters and
 checks, and the simulator and the LM serving path through the kernels
 against the plain versions.
 They
@@ -165,6 +166,57 @@ def test_ssd_kernel_matches_plain_version(dev, Bt, L, H, P, N):
                                atol=1e-4, rtol=1e-4)
     with pytest.raises(TypeError, match="float32"):
         ssd_scan(x.double(), dt, A, B, C, D, chunk=32)
+
+
+SSD_PHASE_CASES = [
+    # Bt, L, H, P, N, chunk, (A, dt) held constant or None
+    (2, 64, 6, 64, 16, 64, None),          # one chunk
+    (2, 256, 10, 64, 16, 32, None),        # chunk 32
+    (1, 128, 3, 32, 128, 64, None),        # N 128
+    (4, 512, 53, 64, 16, 64, None),        # a short last head group
+    (2, 512, 12, 16, 16, 64, None),        # P 16
+    (2, 256, 8, 64, 16, 64, (-8.0, 0.1)),  # Γ overflows above the diagonal
+    (2, 36, 3, 10, 6, 9, None),            # Q, P, N off the tiles
+    (2, 8, 4, 16, 8, 64, None),            # the smoke serve's L 8
+]
+
+
+@pytest.mark.parametrize("case", SSD_PHASE_CASES)
+def test_ssd_phase_kernels_match_their_plain_pieces(dev, case):
+    from repro_torch.kernels import SSD_LAUNCHES, ref
+    from repro_torch.kernels import ssd as sk
+    Bt, L, H, P, N, chunk, decay = case
+    g = torch.Generator(device=dev).manual_seed(L + H)
+    x = torch.randn(Bt, L, H, P, generator=g, device=dev)
+    dt = 0.001 + 0.099 * torch.rand(Bt, L, H, generator=g, device=dev)
+    A = -(0.5 + 1.5 * torch.rand(H, generator=g, device=dev))
+    if decay is not None:
+        A, dt = torch.full_like(A, decay[0]), torch.full_like(dt, decay[1])
+    B, C = (torch.randn(Bt, L, N, generator=g, device=dev)
+            for _ in range(2))
+    D = torch.randn(H, generator=g, device=dev)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    S_ref, tot_ref = ref.ssd_chunk_states(x, dt, A, B, chunk=chunk)
+    h_ref, fin_ref = ref.ssd_pass_states(S_ref, tot_ref)
+    before = SSD_LAUNCHES.count
+    S, tot = sk.chunk_states(x, dt, A, B, chunk=chunk)
+    h_in, fin = sk.pass_states(S_ref, tot_ref)
+    y = sk.chunk_scan(x, dt, A, B, C, D, h_ref, chunk=chunk)
+    assert SSD_LAUNCHES.count == before      # the phases alone: not counted
+    torch.cuda.synchronize()
+    torch.testing.assert_close(S, S_ref, **tol)
+    torch.testing.assert_close(tot, tot_ref, **tol)
+    torch.testing.assert_close(h_in, h_ref, **tol)
+    torch.testing.assert_close(fin, fin_ref, **tol)
+    torch.testing.assert_close(
+        y, ref.ssd_chunk_scan(x, dt, A, B, C, D, h_ref, chunk=chunk), **tol)
+    y, state = sk.ssd_scan(x, dt, A, B, C, D, chunk=chunk, return_state=True)
+    assert SSD_LAUNCHES.count == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ref.ssd_chunked(x, dt, A, B, C, D,
+                                                  chunk=chunk), **tol)
+    torch.testing.assert_close(state, ref.ssd_final_state(x, dt, A, B),
+                               **tol)
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-130m",
