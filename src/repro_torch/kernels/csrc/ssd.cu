@@ -154,85 +154,192 @@ __device__ __forceinline__ float warp_cumsum(const float* dt, float a,
   return __shfl_sync(0xffffffffu, s, 31);
 }
 
+// The products run on the tensor cores as 3xTF32: each operand is
+// split into hi = tf32(a) and lo = a - hi, and a·b is taken as
+// lo·hi + hi·lo + hi·hi (mma.sync.m16n8k8, float32 accumulators), which
+// keeps float32's accuracy; the dropped lo·lo term is below its
+// rounding.  hi is rounded to tf32 with integer operations (add half a
+// tf32 unit, clear the 13 low bits), not cvt.rna.tf32.f32, which issues
+// at the conversion rate; the tensor cores read lo's top 19 bits and
+// drop the rest, which costs lo, and so a·b, about 2^-21 relative.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A[r0:r0+16, 0:kend] B[0:kend, c0+8nn : c0+8nn+8], nn < NT, by one warp
+// (kend % 8 == 0): the hi·hi products into acc[nn], the two small
+// lo·hi + hi·lo products into low[nn] (two short chains in place of one
+// of three; the caller adds low to acc last).  A[r][k] is a[r * lda + k],
+// or a[k * lda + r] when kAT (stored transposed), times ascale[k] when
+// kScale; B[k][c] is b[k * ldb + c].
+template <bool kAT, int NT, bool kScale = false>
+__device__ __forceinline__ void mma_rows(float (&acc)[NT][4],
+                                         float (&low)[NT][4], const float* a,
+                                         int lda, const float* b, int ldb,
+                                         int r0, int c0, int kend,
+                                         const float* ascale = nullptr) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < kend; k += 8) {
+    float av[4];
+    if (kAT) {
+      av[0] = a[(k + t) * lda + r0 + g];
+      av[1] = a[(k + t) * lda + r0 + g + 8];
+      av[2] = a[(k + t + 4) * lda + r0 + g];
+      av[3] = a[(k + t + 4) * lda + r0 + g + 8];
+    } else {
+      av[0] = a[(r0 + g) * lda + k + t];
+      av[1] = a[(r0 + g + 8) * lda + k + t];
+      av[2] = a[(r0 + g) * lda + k + t + 4];
+      av[3] = a[(r0 + g + 8) * lda + k + t + 4];
+    }
+    if (kScale) {
+      const float s0 = ascale[k + t], s1 = ascale[k + t + 4];
+      av[0] *= s0;
+      av[1] *= s0;
+      av[2] *= s1;
+      av[3] *= s1;
+    }
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split_tf32(av[q], ah[q], al[q]);
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn) {
+      const float* bc = b + c0 + 8 * nn + g;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(bc[(k + t) * ldb], bh0, bl0);
+      split_tf32(bc[(k + t + 4) * ldb], bh1, bl1);
+      mma_tf32(low[nn], al, bh0, bh1);
+      mma_tf32(low[nn], ah, bl0, bl1);
+      mma_tf32(acc[nn], ah, bh0, bh1);
+    }
+  }
+}
+
+__host__ __device__ __forceinline__ int round8(int v) { return (v + 7) & ~7; }
+__host__ __device__ __forceinline__ int round16(int v) {
+  return (v + 15) & ~15;
+}
+
 // ---------------------------------------------------------------- phase 1
-// Shared memory (float32): B [Q][Np], x [HG][Q][Pp], dt [HG][Q],
-// coef [HG][Q] = dt * exp(total - cum).
+// S [N, P] = (B ⊙ coef)ᵀ x per head, coef = dt * exp(total - cum), on
+// the tensor cores: A[n][j] = B[j][n] coef[j] is read from B's own
+// layout (transposed), and a warp owns 16 rows of S by 8 kScanNT
+// columns.  Shared memory (float32), Q8 = round8(Q), N16 = round16(N),
+// Pw = P rounded up to 8 kScanNT:
+//   B [Q8][lb], lb = round32(N16) + 8;  x [HG][Q8][lx], lx = Pw + 8
+//     (strides that put a fragment load's 32 lanes on 32 banks);
+//   dt, coef [HG][Q8].
+// The k padding (rows Q..Q8 of B and x, coef) is zero.
+struct StateSmem {
+  int Q8, N16, Pw, lb, lx;
+  size_t b, x, dt, coef, total;
+  __host__ __device__ StateSmem(int Q, int P, int N, int HG) {
+    Q8 = round8(Q);
+    N16 = round16(N);
+    Pw = (P + 8 * kScanNT - 1) / (8 * kScanNT) * (8 * kScanNT);
+    lb = (N16 + 31) / 32 * 32 + 8;
+    lx = Pw + 8;
+    b = 0;
+    x = b + static_cast<size_t>(Q8) * lb;
+    dt = x + static_cast<size_t>(HG) * Q8 * lx;
+    coef = dt + static_cast<size_t>(HG) * Q8;
+    total = coef + static_cast<size_t>(HG) * Q8;
+  }
+};
+
 __global__ void __launch_bounds__(kStateThreads)
 ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 float* __restrict__ S_loc, float* __restrict__ total,
-                int L, int H, int P, int N, int Q, int HG, int vec_x) {
+                int L, int H, int P, int N, int Q, int HG, int vec_x,
+                int vec_b) {
   extern __shared__ __align__(16) float smem[];
-  const int Np = round4(N), Pp = round4(P);
-  float* b_s = smem;
-  float* x_s = b_s + Q * Np;
-  float* dt_s = x_s + HG * Q * Pp;
-  float* coef_s = dt_s + HG * Q;
+  const StateSmem lay(Q, P, N, HG);
+  const int Q8 = lay.Q8, lb = lay.lb, lx = lay.lx;
+  float* b_s = smem + lay.b;
+  float* x_s = smem + lay.x;
+  float* dt_s = smem + lay.dt;
+  float* coef_s = smem + lay.coef;
 
   const int c = blockIdx.x, b = blockIdx.y, h0 = blockIdx.z * HG;
   const int nh = min(HG, H - h0);
   const int nc = L / Q;
   const long long row0 = static_cast<long long>(b) * L + c * Q;
-  const bool vx = vec_x != 0;
 
-  stage_rows(b_s, Np, Bm + row0 * N, N, Q, N, false);
+  for (int idx = threadIdx.x; idx < (Q8 - Q) * lb; idx += blockDim.x)
+    b_s[Q * lb + idx] = 0.f;
+  for (int hl = 0; hl < nh; ++hl)
+    for (int idx = threadIdx.x; idx < (Q8 - Q) * lx; idx += blockDim.x)
+      x_s[(hl * Q8 + Q) * lx + idx] = 0.f;
+  stage_rows(b_s, lb, Bm + row0 * N, N, Q, N, vec_b != 0);
   // x rows of the group are contiguous: nh * P floats per step
   for (int hl = 0; hl < nh; ++hl)
-    stage_rows(x_s + hl * Q * Pp, Pp, x + (row0 * H + h0 + hl) * P,
-               static_cast<long long>(H) * P, Q, P, vx);
+    stage_rows(x_s + hl * Q8 * lx, lx, x + (row0 * H + h0 + hl) * P,
+               static_cast<long long>(H) * P, Q, P, vec_x != 0);
   for (int idx = threadIdx.x; idx < nh * Q; idx += blockDim.x) {
     const int hl = idx / Q, t = idx - hl * Q;
-    cp_async4(dt_s + idx, dt + (row0 + t) * H + h0 + hl);
+    cp_async4(dt_s + hl * Q8 + t, dt + (row0 + t) * H + h0 + hl);
   }
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
   for (int hl = warp; hl < nh; hl += nwarps) {
-    float* cum = coef_s + hl * Q;       // cum first, then the coefficient
-    const float tot = warp_cumsum(dt_s + hl * Q, A[h0 + hl], Q, cum);
+    float* cum = coef_s + hl * Q8;      // cum first, then the coefficient
+    const float tot = warp_cumsum(dt_s + hl * Q8, A[h0 + hl], Q, cum);
     __syncwarp();
-    for (int t = threadIdx.x & 31; t < Q; t += 32)
-      cum[t] = dt_s[hl * Q + t] * expf(tot - cum[t]);
-    if ((threadIdx.x & 31) == 0)
+    for (int t = lane; t < Q8; t += 32)
+      cum[t] = t < Q ? dt_s[hl * Q8 + t] * expf(tot - cum[t]) : 0.f;
+    if (lane == 0)
       total[(static_cast<long long>(b) * nc + c) * H + h0 + hl] = tot;
   }
   __syncthreads();
 
-  // S [N, P] per head in 4 x 4 register tiles: item = (head, n tile,
-  // p tile), p tile fastest
-  const int ntn = Np >> 2, ntp = Pp >> 2;
-  const int per_head = ntn * ntp;
+  // warp units: (head, 16-row tile of S, 8 kScanNT columns)
+  constexpr int kCols = 8 * kScanNT;
+  const int MT = lay.N16 >> 4;
+  const int per_head = MT * (lay.Pw / kCols);
+  const int gq = lane >> 2, tq = lane & 3;
   const bool vs = (P & 3) == 0;
-  for (int item = threadIdx.x; item < nh * per_head; item += blockDim.x) {
-    const int hl = item / per_head, r = item - hl * per_head;
-    const int n0 = (r / ntp) * 4, p0 = (r % ntp) * 4;
-    const float* xh = x_s + hl * Q * Pp + p0;
-    const float* cf = coef_s + hl * Q;
-    float acc[4][4] = {};
-    for (int j = 0; j < Q; ++j) {
-      const float4 bv = *reinterpret_cast<const float4*>(b_s + j * Np + n0);
-      float4 xv = *reinterpret_cast<const float4*>(xh + j * Pp);
-      const float w = cf[j];
-      xv.x *= w; xv.y *= w; xv.z *= w; xv.w *= w;
-      const float bn[4] = {bv.x, bv.y, bv.z, bv.w};
+  for (int u = warp; u < nh * per_head; u += nwarps) {
+    const int hl = u / per_head, r = u - hl * per_head;
+    const int r0 = (r % MT) * 16, c0 = (r / MT) * kCols;
+    float acc[kScanNT][4] = {}, low[kScanNT][4] = {};
+    mma_rows<true, kScanNT, true>(acc, low, b_s, lb, x_s + hl * Q8 * lx, lx,
+                                  r0, c0, Q8, coef_s + hl * Q8);
+    float* out = S_loc + ((static_cast<long long>(b) * nc + c) * H + h0 +
+                          hl) * N * P;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(bn[i], xv.x, acc[i][0]);
-        acc[i][1] = fmaf(bn[i], xv.y, acc[i][1]);
-        acc[i][2] = fmaf(bn[i], xv.z, acc[i][2]);
-        acc[i][3] = fmaf(bn[i], xv.w, acc[i][3]);
+    for (int nn = 0; nn < kScanNT; ++nn) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int n = r0 + gq + 8 * hr;
+        const int p = c0 + 8 * nn + 2 * tq;
+        if (n >= N || p >= P) continue;
+        const float o0 = acc[nn][2 * hr] + low[nn][2 * hr];
+        const float o1 = acc[nn][2 * hr + 1] + low[nn][2 * hr + 1];
+        float* dst = out + n * P + p;
+        if (vs) {
+          *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
+        } else {
+          dst[0] = o0;
+          if (p + 1 < P) dst[1] = o1;
+        }
       }
     }
-    float* out = S_loc + (((static_cast<long long>(b) * nc + c) * H + h0 +
-                           hl) * N) * P;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (n0 + i < N)
-        store4(out + (n0 + i) * P + p0,
-               make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]),
-               P - p0, vs);
   }
 }
 
@@ -284,75 +391,6 @@ ssd_state_pass(const float* S_loc, const float* __restrict__ total,
 }
 
 // ---------------------------------------------------------------- phase 3
-// The products of y run on the tensor cores as 3xTF32: each operand is
-// split into hi = tf32(a) and lo = a - hi, and a·b is taken as
-// lo·hi + hi·lo + hi·hi (mma.sync.m16n8k8, float32 accumulators), which
-// keeps float32's accuracy; the dropped lo·lo term is below its
-// rounding.  hi is rounded to tf32 with integer operations (add half a
-// tf32 unit, clear the 13 low bits), not cvt.rna.tf32.f32, which issues
-// at the conversion rate; the tensor cores read lo's top 19 bits and
-// drop the rest, which costs lo, and so a·b, about 2^-21 relative.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A[r0:r0+16, 0:kend] B[0:kend, c0+8nn : c0+8nn+8], nn < NT, by one warp
-// (kend % 8 == 0): the hi·hi products into acc[nn], the two small
-// lo·hi + hi·lo products into low[nn] (two short chains in place of one
-// of three; the caller adds low to acc last).  A[r][k] is a[r * lda + k],
-// or a[k * lda + r] when kAT (stored transposed); B[k][c] is b[k * ldb +
-// c].
-template <bool kAT, int NT>
-__device__ __forceinline__ void mma_rows(float (&acc)[NT][4],
-                                         float (&low)[NT][4], const float* a,
-                                         int lda, const float* b, int ldb,
-                                         int r0, int c0, int kend) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < kend; k += 8) {
-    float av[4];
-    if (kAT) {
-      av[0] = a[(k + t) * lda + r0 + g];
-      av[1] = a[(k + t) * lda + r0 + g + 8];
-      av[2] = a[(k + t + 4) * lda + r0 + g];
-      av[3] = a[(k + t + 4) * lda + r0 + g + 8];
-    } else {
-      av[0] = a[(r0 + g) * lda + k + t];
-      av[1] = a[(r0 + g + 8) * lda + k + t];
-      av[2] = a[(r0 + g) * lda + k + t + 4];
-      av[3] = a[(r0 + g + 8) * lda + k + t + 4];
-    }
-    uint32_t ah[4], al[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) split_tf32(av[q], ah[q], al[q]);
-#pragma unroll
-    for (int nn = 0; nn < NT; ++nn) {
-      const float* bc = b + c0 + 8 * nn + g;
-      uint32_t bh0, bl0, bh1, bl1;
-      split_tf32(bc[(k + t) * ldb], bh0, bl0);
-      split_tf32(bc[(k + t + 4) * ldb], bh1, bl1);
-      mma_tf32(low[nn], al, bh0, bh1);
-      mma_tf32(low[nn], ah, bl0, bl1);
-      mma_tf32(acc[nn], ah, bh0, bh1);
-    }
-  }
-}
-
-__host__ __device__ __forceinline__ int round8(int v) { return (v + 7) & ~7; }
-__host__ __device__ __forceinline__ int round16(int v) {
-  return (v + 15) & ~15;
-}
-
 // Shared memory (float32), Qp = round4(Q), Q8/Q16 = Q rounded up to 8/16,
 // N8 = round8(N), Pw = P rounded up to a warp unit's 8 kScanNT columns:
 //   Ct [N8][lt], lt = Q16 + 8 (C transposed: 4 steps are one float4 for
@@ -593,19 +631,15 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-size_t state_smem(int Q, int P, int N, int HG) {
-  return (static_cast<size_t>(Q) * round4(N) +
-          static_cast<size_t>(HG) * Q * round4(P) + 2 * HG * Q) *
-         sizeof(float);
-}
-
-// Heads per chunk_state block: enough 4 x 4 tiles for the block's
-// threads, within 64 KB of shared memory.
+// Heads per chunk_state block: enough warp units for the block's warps,
+// within 64 KB of shared memory.
 int state_group(int H, int P, int N, int Q) {
-  const int per_head = (round4(N) / 4) * (round4(P) / 4);
-  int hg = (kStateThreads + per_head - 1) / per_head;
+  const StateSmem one(Q, P, N, 1);
+  const int per_head = (one.N16 / 16) * (one.Pw / (8 * kScanNT));
+  int hg = (kStateThreads / 32 + per_head - 1) / per_head;
   hg = hg < H ? hg : H;
-  while (hg > 1 && state_smem(Q, P, N, hg) > 64 * 1024) --hg;
+  while (hg > 1 && StateSmem(Q, P, N, hg).total * sizeof(float) > 64 * 1024)
+    --hg;
   return hg;
 }
 
@@ -660,18 +694,19 @@ extern "C" int ssd_chunk_state_launch(const void* x, const void* dt,
   if (bad_shape(Bt, L, H, P, N, Q))
     return static_cast<int>(cudaErrorInvalidValue);
   const int hg = state_group(H, P, N, Q);
-  const size_t smem = state_smem(Q, P, N, hg);
+  const size_t smem = StateSmem(Q, P, N, hg).total * sizeof(float);
   cudaError_t e = allow_smem(reinterpret_cast<const void*>(ssd_chunk_state),
                              smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int vec = (P % 4 == 0) && aligned16(x);
+  const int vec_b = (N % 4 == 0) && aligned16(B);
   const dim3 grid(L / Q, Bt, (H + hg - 1) / hg);
   ssd_chunk_state<<<grid, kStateThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(B),
       static_cast<float*>(S_loc), static_cast<float*>(total), L, H, P, N, Q,
-      hg, vec);
+      hg, vec, vec_b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,7 +52,7 @@ VARIANTS = {
                            "constexpr int kScanNT = 2;"))),
     # chunk_state with one head per block (more, smaller blocks)
     "state_group1": (False, ((
-        "  int hg = (kStateThreads + per_head - 1) / per_head;",
+        "  int hg = (kStateThreads / 32 + per_head - 1) / per_head;",
         "  int hg = 1;"),)),
     # diagnostic: no G (the products read whatever G holds)
     "no_g": (True, (("i < lay.Q16; i += 2 * nwarps) {",
