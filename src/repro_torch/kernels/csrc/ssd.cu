@@ -68,11 +68,9 @@ constexpr int kMaxChunk = 64;
 constexpr int kStateThreads = 128;   // ssd_chunk_state
 constexpr int kPassThreads = 128;    // ssd_state_pass
 constexpr int kScanThreads = 256;    // ssd_chunk_scan
-// a warp's unit of y in chunk_scan: kScanNT n tiles of 8 columns, over
-// one 16-row tile, or two (m, MT-1-m) when kScanPairs, so that the causal
-// work of the warps is even
-constexpr int kScanNT = 4;
-constexpr bool kScanPairs = false;
+// a warp's unit of the tensor-core products: 16 rows by kNT n tiles of 8
+// columns
+constexpr int kNT = 4;
 constexpr int kPassBatch = 8;        // chunks loaded ahead in the pass
 constexpr int kSmemLimit = 227 * 1024;
 
@@ -139,8 +137,7 @@ __device__ __forceinline__ float warp_cumsum(const float* dt, float a,
   const int t0 = 2 * lane, t1 = t0 + 1;
   const float d0 = t0 < Q ? dt[t0] * a : 0.f;
   const float d1 = t1 < Q ? dt[t1] * a : 0.f;
-  const float pair = d0 + d1;
-  float s = pair;
+  float s = d0 + d1;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const float o = __shfl_up_sync(0xffffffffu, s, off);
@@ -234,9 +231,9 @@ __host__ __device__ __forceinline__ int round16(int v) {
 // ---------------------------------------------------------------- phase 1
 // S [N, P] = (B ⊙ coef)ᵀ x per head, coef = dt * exp(total - cum), on
 // the tensor cores: A[n][j] = B[j][n] coef[j] is read from B's own
-// layout (transposed), and a warp owns 16 rows of S by 8 kScanNT
+// layout (transposed), and a warp owns 16 rows of S by 8 kNT
 // columns.  Shared memory (float32), Q8 = round8(Q), N16 = round16(N),
-// Pw = P rounded up to 8 kScanNT:
+// Pw = P rounded up to 8 kNT:
 //   B [Q8][lb], lb = round32(N16) + 8;  x [HG][Q8][lx], lx = Pw + 8
 //     (strides that put a fragment load's 32 lanes on 32 banks);
 //   dt, coef [HG][Q8].
@@ -247,7 +244,7 @@ struct StateSmem {
   __host__ __device__ StateSmem(int Q, int P, int N, int HG) {
     Q8 = round8(Q);
     N16 = round16(N);
-    Pw = (P + 8 * kScanNT - 1) / (8 * kScanNT) * (8 * kScanNT);
+    Pw = (P + 8 * kNT - 1) / (8 * kNT) * (8 * kNT);
     lb = (N16 + 31) / 32 * 32 + 8;
     lx = Pw + 8;
     b = 0;
@@ -308,8 +305,8 @@ ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
   }
   __syncthreads();
 
-  // warp units: (head, 16-row tile of S, 8 kScanNT columns)
-  constexpr int kCols = 8 * kScanNT;
+  // warp units: (head, 16-row tile of S, 8 kNT columns)
+  constexpr int kCols = 8 * kNT;
   const int MT = lay.N16 >> 4;
   const int per_head = MT * (lay.Pw / kCols);
   const int gq = lane >> 2, tq = lane & 3;
@@ -317,13 +314,13 @@ ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
   for (int u = warp; u < nh * per_head; u += nwarps) {
     const int hl = u / per_head, r = u - hl * per_head;
     const int r0 = (r % MT) * 16, c0 = (r / MT) * kCols;
-    float acc[kScanNT][4] = {}, low[kScanNT][4] = {};
-    mma_rows<true, kScanNT, true>(acc, low, b_s, lb, x_s + hl * Q8 * lx, lx,
+    float acc[kNT][4] = {}, low[kNT][4] = {};
+    mma_rows<true, kNT, true>(acc, low, b_s, lb, x_s + hl * Q8 * lx, lx,
                                   r0, c0, Q8, coef_s + hl * Q8);
     float* out = S_loc + ((static_cast<long long>(b) * nc + c) * H + h0 +
                           hl) * N * P;
 #pragma unroll
-    for (int nn = 0; nn < kScanNT; ++nn) {
+    for (int nn = 0; nn < kNT; ++nn) {
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int n = r0 + gq + 8 * hr;
@@ -392,7 +389,7 @@ ssd_state_pass(const float* S_loc, const float* __restrict__ total,
 
 // ---------------------------------------------------------------- phase 3
 // Shared memory (float32), Qp = round4(Q), Q8/Q16 = Q rounded up to 8/16,
-// N8 = round8(N), Pw = P rounded up to a warp unit's 8 kScanNT columns:
+// N8 = round8(N), Pw = P rounded up to a warp unit's 8 kNT columns:
 //   Ct [N8][lt], lt = Q16 + 8 (C transposed: 4 steps are one float4 for
 //     C Bᵀ, and Ct is the A operand of C h_in);
 //   Bt [N][lt] (B transposed), which is dead once C Bᵀ is formed, and
@@ -414,7 +411,7 @@ struct ScanSmem {
     Q8 = round8(Q);
     Q16 = round16(Q);
     N8 = round8(N);
-    Pw = (P + 8 * kScanNT - 1) / (8 * kScanNT) * (8 * kScanNT);
+    Pw = (P + 8 * kNT - 1) / (8 * kNT) * (8 * kNT);
     lt = Q16 + 8;
     lg = Q8 + 4;
     lx = Pw + 8;
@@ -527,11 +524,10 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
           make_float4(acc[0][k], acc[1][k], acc[2][k], acc[3][k]);
   }
 
-  // warp units: kScanNT n tiles of y over one or two 16-row tiles
-  constexpr int kCols = 8 * kScanNT;
+  // warp units: (16-row tile of y, 8 kNT columns)
+  constexpr int kCols = 8 * kNT;
   const int MT = lay.Q16 >> 4;
-  const int per_col = kScanPairs ? (MT + 1) >> 1 : MT;
-  const int units = per_col * (lay.Pw / kCols);
+  const int units = MT * (lay.Pw / kCols);
   const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   // G ⊙ dt_j of head hl into `g_s`, on the 16-row tiles up to their
   // diagonal, 4 columns per lane, a half warp per row; a select keeps
@@ -580,50 +576,44 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
     const float dskip = Dv[h0 + hl];
     const float* ecum = ecum_s + hl * Qp;
     for (int u = warp; u < units; u += nwarps) {
-      const int c0 = (u / per_col) * kCols, m = u % per_col;
-      for (int side = 0; side < (kScanPairs ? 2 : 1); ++side) {
-        const int mt = side == 0 ? m : MT - 1 - m;
-        if (side == 1 && mt == m) break;
-        const int r0 = mt * 16;
-        float intra[kScanNT][4] = {}, inter[kScanNT][4] = {};
-        {
-          float low[kScanNT][4] = {};
-          mma_rows<false, kScanNT>(intra, low, g_s, lg, xs, lx, r0, c0,
-                                   min(r0 + 16, Q8));
+      const int r0 = (u % MT) * 16, c0 = (u / MT) * kCols;
+      float intra[kNT][4] = {}, inter[kNT][4] = {};
+      {
+        float low[kNT][4] = {};
+        mma_rows<false, kNT>(intra, low, g_s, lg, xs, lx, r0, c0,
+                             min(r0 + 16, Q8));
 #pragma unroll
-          for (int nn = 0; nn < kScanNT; ++nn)
+        for (int nn = 0; nn < kNT; ++nn)
 #pragma unroll
-            for (int k = 0; k < 4; ++k) intra[nn][k] += low[nn][k];
-        }
-        {
-          float low[kScanNT][4] = {};
-          mma_rows<true, kScanNT>(inter, low, ct_s, lt, hs, lx, r0, c0,
-                                  lay.N8);
+          for (int k = 0; k < 4; ++k) intra[nn][k] += low[nn][k];
+      }
+      {
+        float low[kNT][4] = {};
+        mma_rows<true, kNT>(inter, low, ct_s, lt, hs, lx, r0, c0, lay.N8);
 #pragma unroll
-          for (int nn = 0; nn < kScanNT; ++nn)
+        for (int nn = 0; nn < kNT; ++nn)
 #pragma unroll
-            for (int k = 0; k < 4; ++k) inter[nn][k] += low[nn][k];
-        }
+          for (int k = 0; k < 4; ++k) inter[nn][k] += low[nn][k];
+      }
 #pragma unroll
-        for (int nn = 0; nn < kScanNT; ++nn) {
+      for (int nn = 0; nn < kNT; ++nn) {
 #pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int i = r0 + gq + 8 * hr;
-            const int p = c0 + 8 * nn + 2 * tq;
-            if (i >= Q || p >= P) continue;
-            const float e = ecum[i];
-            float o[2];
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = r0 + gq + 8 * hr;
+          const int p = c0 + 8 * nn + 2 * tq;
+          if (i >= Q || p >= P) continue;
+          const float e = ecum[i];
+          float o[2];
 #pragma unroll
-            for (int k = 0; k < 2; ++k)
-              o[k] = (intra[nn][2 * hr + k] + e * inter[nn][2 * hr + k]) +
-                     dskip * xs[i * lx + p + k];
-            float* dst = y + ((row0 + i) * H + h0 + hl) * P + p;
-            if (vy) {
-              *reinterpret_cast<float2*>(dst) = make_float2(o[0], o[1]);
-            } else {
-              dst[0] = o[0];
-              if (p + 1 < P) dst[1] = o[1];
-            }
+          for (int k = 0; k < 2; ++k)
+            o[k] = (intra[nn][2 * hr + k] + e * inter[nn][2 * hr + k]) +
+                   dskip * xs[i * lx + p + k];
+          float* dst = y + ((row0 + i) * H + h0 + hl) * P + p;
+          if (vy) {
+            *reinterpret_cast<float2*>(dst) = make_float2(o[0], o[1]);
+          } else {
+            dst[0] = o[0];
+            if (p + 1 < P) dst[1] = o[1];
           }
         }
       }
@@ -635,7 +625,7 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
 // within 64 KB of shared memory.
 int state_group(int H, int P, int N, int Q) {
   const StateSmem one(Q, P, N, 1);
-  const int per_head = (one.N16 / 16) * (one.Pw / (8 * kScanNT));
+  const int per_head = (one.N16 / 16) * (one.Pw / (8 * kNT));
   int hg = (kStateThreads / 32 + per_head - 1) / per_head;
   hg = hg < H ? hg : H;
   while (hg > 1 && StateSmem(Q, P, N, hg).total * sizeof(float) > 64 * 1024)

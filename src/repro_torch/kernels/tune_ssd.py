@@ -45,11 +45,6 @@ VARIANTS = {
         "  const float rest = v - __uint_as_float(hi);\n"
         "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(lo) : "
         "\"f\"(rest));\n"),)),
-    # warp units of a pair of 16-row tiles (m, MT-1-m) by 2 n tiles
-    "pairs_nt2": (False, (("constexpr bool kScanPairs = false;",
-                           "constexpr bool kScanPairs = true;"),
-                          ("constexpr int kScanNT = 4;",
-                           "constexpr int kScanNT = 2;"))),
     # chunk_state with one head per block (more, smaller blocks)
     "state_group1": (False, ((
         "  int hg = (kStateThreads / 32 + per_head - 1) / per_head;",
