@@ -709,8 +709,8 @@ SSD_CASES = (
     ("smoke_serve_l8", 2, 8, 4, 16, 8, 64, None),
 )
 SSD_TIMED = ("hymba", "mamba2_130m")
-# PR 13's single-kernel K3 at Hymba's shape (PERF.md §6; NVIDIA H100
-# 80GB HBM3, 700 W), which this design replaced
+# the single-kernel K3 that the three-phase design replaced, at Hymba's
+# shape (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W)
 SSD_EARLIER_MS = 0.8908240318298339
 
 

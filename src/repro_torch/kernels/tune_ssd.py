@@ -54,11 +54,10 @@ VARIANTS = {
                      "i < 0; i += 2 * nwarps) {"),)),
     # diagnostic: no products of y (the epilogue stores D x alone)
     "no_mma": (True, (
-        ("          mma_rows<false, kScanNT>(intra, low, g_s, lg, xs, lx, "
-         "r0, c0,\n                                   min(r0 + 16, Q8));\n",
-         ""),
-        ("          mma_rows<true, kScanNT>(inter, low, ct_s, lt, hs, lx, "
-         "r0, c0,\n                                  lay.N8);\n", ""))),
+        ("        mma_rows<false, kNT>(intra, low, g_s, lg, xs, lx, r0, c0,\n"
+         "                             min(r0 + 16, Q8));\n", ""),
+        ("        mma_rows<true, kNT>(inter, low, ct_s, lt, hs, lx, r0, c0, "
+         "lay.N8);\n", ""))),
     # one head per block: C Bᵀ and the block's set-up are not shared
     "group1": (False, (("int scan_group(int Bt, int nc, int H) {\n",
                         "int scan_group(int Bt, int nc, int H) {\n"

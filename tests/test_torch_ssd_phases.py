@@ -153,3 +153,13 @@ def test_phase_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="no kernel"):
         sk.chunk_states(*(t.to("meta") for t in (x, dt, A, B)),
                         chunk=chunk)
+
+
+def test_tune_variants_apply_to_the_kernel_source():
+    # every variant of tune_ssd is text substitutions on csrc/ssd.cu;
+    # each must still find its text in the committed source
+    from repro_torch.kernels import _build, tune_ssd
+    src = (_build.CSRC / "ssd.cu").read_text()
+    for name, (_, subs) in tune_ssd.VARIANTS.items():
+        for old, _ in subs:
+            assert old in src, (name, old)
