@@ -12,14 +12,23 @@ printing one JSON line:
 2. ``build``: compiles every CUDA kernel of the port from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
    together) and prints the seconds taken.
-3. ``kernel_waterfill``: the waterfill kernel against its plain PyTorch
-   version on the card — random flow sets at R = 4096 rows for
-   W in {8, 16, 32} (F = 4W) plus edge cases, bitwise equality expected
-   (fails above rtol 1e-6) — and both versions timed at the survey's
-   shape (R 96) and at R 4096: the kernel by device time of calls
-   replayed from a CUDA graph (``ms``; an eager loop of calls this short
-   times the host, its time stands beside as ``eager_ms``), the plain
-   version with CUDA events around eager calls.
+3. ``kernel_waterfill``: both routes of the waterfill kernel (``warp``
+   and ``block``, forced through the wrapper's private entry) against
+   the plain PyTorch version on the card, bitwise or fail — random flow
+   sets at R = 4096 for W in {1, 8, 16, 32} (F = 4W) and the block
+   route alone at W 64 (F 256), edge cases at each W (all inactive,
+   single-source contention, equal-share ties, worker ids outside
+   [0, W), max_rounds 3), R 1, 7 and 33, and F 100 at W 20.  Both
+   routes are timed in turns (warp, block, block, warp) at the survey's
+   shape (R 96, W 32, F 128) and at R 4096: ``ms`` is device time of
+   calls replayed from a CUDA graph, ``eager_ms`` CUDA events around a
+   loop of calls, ``host_us`` the host's enqueue time per call; the
+   plain version by CUDA events around eager calls.  Then K1 on the
+   main path's own inputs: a hook of this script copies the inputs of
+   every K1 call of one blevel run of the ``survey_full_width`` cell;
+   both routes must be bitwise equal to the plain version on all of
+   them, and each replays them from a CUDA graph (in turns); the plain
+   version gives the filling rounds per row.
 4. ``golden``: the dynamic simulator against the reference package's
    recorded ``BENCH_PR7.json`` dynamic rows (blevel, maxmin, frontier
    on, 100 MiB/s, exact imode, msd 0).
@@ -28,7 +37,10 @@ printing one JSON line:
    (W = 32, 128 flow slots, 64 resources), all 24 points, blevel and
    greedy on maxmin, through the plain version and the kernel in turns
    (plain, kernel, kernel, plain) on the card; the results must agree
-   and the kernel's launch count must be positive.
+   and every launch of the main path must take the warp route.  One
+   more blevel run through the kernel, under ``torch.profiler`` and
+   outside the timed turns, gives the card's busy and idle share during
+   a survey and K1's share of the device time.
 7. ``kernel_flash_attention``: K2 against its plain version on the card
    (float32 and bfloat16) at Hymba's prefill shape (B 4, Hq 25, Hkv 5,
    Sq 1536, Skv 1568, kv_len 1536, window 1024 and 0, the KV cache's
@@ -67,8 +79,9 @@ printing one JSON line:
    are also counted by route (bf16: ``tc`` at prefill, ``split`` at
    decode; float32: ``f32``), and the prefill profile gives K2's and
    K3's device time and share.
-10. ``kernels``: each kernel with its launches on the main path; needs
-    every kernel's check phase and the phase of its path in the same run.
+10. ``kernels``: each kernel with its launches on the main path (K1 and
+    K2 also by route); needs every kernel's check phase and the phase of
+    its path in the same run.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}``.
@@ -205,7 +218,24 @@ def _edge_cases(W, F):
     ring_d = ((ring_s + 1) % W).astype(np.int32)
     cases["equal_share_ties"] = (ring_s, ring_d, np.ones((4, F), bool),
                                  np.full((4, W), 64.0, np.float32))
+    # every third flow with a worker id outside [0, W): treated as
+    # inactive by the kernels
+    rng = np.random.default_rng(W)
+    src, dst, active, caps = _flow_sets(rng, 4, W, F, p_active=0.9)
+    src[:, ::3] = np.where(np.arange(4)[:, None] % 2, W, -1)
+    dst[:, 1::3] = W + 3
+    cases["ids_out_of_range"] = (src, dst, active, caps)
     return cases
+
+
+def _plain_rates(plain, src, dst, active, caps, max_rounds=None):
+    """The plain version's rates and rounds per row, with flows whose
+    ids fall outside ``[0, W)`` made inactive (what the kernels do with
+    them; the plain version indexes by id)."""
+    W = caps.shape[1]
+    inside = (src >= 0) & (src < W) & (dst >= 0) & (dst < W)
+    return plain(src.clamp(0, W - 1), dst.clamp(0, W - 1),
+                 active & inside, caps, caps, max_rounds)
 
 
 def _compare(got, want):
@@ -218,83 +248,229 @@ def _compare(got, want):
             bool(torch.equal(got, want)))
 
 
-def _waterfill_work(rates, active, F, W):
+def _waterfill_work(rounds, R, F, W):
     """(bytes, operations) the function needs on these inputs: each
-    input read once and the output written once; per row, rounds x
-    (4F count/use increments + 12W share, min, test and capacity ops),
-    rounds taken as the row's distinct frozen rates."""
-    import torch
-    R = rates.shape[0]
+    input read once and the output written once; per row, its filling
+    rounds (from the plain version) x (4F count/use increments + 12W
+    share, min, test and capacity ops)."""
     nbytes = R * (F * 4 * 2 + F * 1 + W * 4 * 2 + F * 4)
-    masked = torch.where(active, rates, torch.full_like(rates, -1.0))
-    srt = masked.sort(dim=1).values
-    distinct = ((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] > 0)).sum(dim=1)
-    distinct = distinct + (srt[:, 0] > 0).long()
-    ops = int(distinct.sum()) * (4 * F + 12 * W)
+    ops = int(rounds.sum()) * (4 * F + 12 * W)
     return nbytes, ops
+
+
+def _full_width_group():
+    """(encoded graphs, the T512 group, cores, points) of the full grid's
+    T512 bucket on 32x4 — the survey_full_width cell."""
+    import numpy as np
+    from repro_torch.core import parse_cluster
+    from repro_torch.core.graphs import encode_graph_batch, survey_names
+    from repro_torch.survey import FULL_GRID, grid_points
+    global _FULL_WIDTH
+    if _FULL_WIDTH is None:
+        encoded, groups = encode_graph_batch(
+            survey_names(FULL_GRID["graphs_per_family"]), seed=0,
+            bucket=True)
+        grp = next(g for g in groups if g.shape[0] == 512)
+        cores = np.asarray(parse_cluster("32x4"), np.int32)[None, :]
+        _FULL_WIDTH = (encoded, grp, cores, grid_points(FULL_GRID))
+    return _FULL_WIDTH
+
+
+_FULL_WIDTH = None
+
+
+def _full_width_runner(sched, impl):
+    from repro_torch.core.vectorized import make_grid_runner
+    from repro_torch.survey import full_frontier_caps
+    encoded, grp, cores, _ = _full_width_group()
+    return make_grid_runner(
+        [encoded[n] for n in grp.names], sched, 32, cores,
+        netmodel="maxmin", shape=grp.shape, batch=grp.batch,
+        device="cuda", waterfill_impl=impl,
+        frontier_caps=full_frontier_caps(grp.shape))
+
+
+def _record_path_inputs(sched="blevel"):
+    """The inputs of every K1 call of one run of the survey_full_width
+    cell (``sched`` on maxmin), copied by a hook on the kernel wrapper
+    that this script installs for the run and removes after it."""
+    from repro_torch.kernels import waterfill as wk
+    calls = []
+    wrapped = wk.waterfill
+
+    def hook(src, dst, active, caps_up, caps_down, max_rounds=None):
+        calls.append(tuple(x.clone() for x in (src, dst, active, caps_up,
+                                               caps_down)))
+        return wrapped(src, dst, active, caps_up, caps_down, max_rounds)
+
+    wk.waterfill = hook
+    try:
+        _full_width_runner(sched, "auto")(_full_width_group()[3])
+    finally:
+        wk.waterfill = wrapped
+    return calls
+
+
+def _turns(routes, fn):
+    """``fn(route)`` for each route in turns (a, b, b, a): ``{route:
+    [result, result]}``."""
+    out = {r: [] for r in routes}
+    for r in list(routes) + list(reversed(routes)):
+        out[r].append(fn(r))
+    return out
+
+
+def _host_us(fn, calls=500):
+    """Host microseconds per call of ``fn`` (the enqueue, on the host's
+    clock; the device is left to drain after the loop)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def phase_kernel_waterfill(seed=0, path_rows=96, path_w=32):
     import numpy as np
     import torch
     from repro_torch.core.vectorized.waterfill import waterfill as plain
+    from repro_torch.core.vectorized.waterfill import waterfill_rounds
     from repro_torch.kernels import waterfill as wk  # the module
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     checks = []
-    worst_abs, worst_rel = 0.0, 0.0
+    worst_abs = 0.0
 
-    def check(name, src, dst, active, caps):
-        nonlocal worst_abs, worst_rel
+    def check(name, src, dst, active, caps, max_rounds=None):
+        """Every route that takes the shape against the plain version:
+        bitwise, or fail."""
+        nonlocal worst_abs
         t = [torch.as_tensor(x, device=dev) for x in (src, dst, active, caps)]
-        got = wk.waterfill(t[0], t[1], t[2], t[3], t[3])
-        want = plain(t[0], t[1], t[2], t[3], t[3])
-        torch.cuda.synchronize()
-        a, r, exact = _compare(got, want)
-        worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
-        checks.append(dict(case=name, rows=int(src.shape[0]),
-                           W=int(caps.shape[1]), F=int(src.shape[1]),
-                           max_abs=a, max_rel=r, bitwise=exact))
-        if r > 1e-6:
-            raise AssertionError(f"waterfill kernel disagrees with the "
-                                 f"plain version on {name}: rel {r}")
+        F, W = t[0].shape[1], t[3].shape[1]
+        want = _plain_rates(plain, *t, max_rounds)
+        routes = wk.ROUTES if wk.route_for(F, W) == "warp" else ("block",)
+        for route in routes:
+            got = wk._waterfill(t[0], t[1], t[2], t[3], t[3], max_rounds,
+                                route=route)
+            torch.cuda.synchronize()
+            a, r, exact = _compare(got, want)
+            worst_abs = max(worst_abs, a)
+            checks.append(dict(case=name, route=route, rows=int(t[0].shape[0]),
+                               W=W, F=F, max_rounds=max_rounds, max_abs=a,
+                               max_rel=r, bitwise=exact))
+            if not exact:
+                emit("kernel_waterfill", checks=checks, ok=False)
+                raise AssertionError(f"waterfill {route} route is not "
+                                     f"bitwise equal to the plain version "
+                                     f"on {name}: abs {a}, rel {r}")
 
-    for W in (8, 16, 32):
-        check(f"random_W{W}", *_flow_sets(rng, 4096, W, 4 * W))
-        for name, case in _edge_cases(W, 4 * W).items():
+    for W in (1, 8, 16, 32, 64):
+        F = 4 * W
+        check(f"random_W{W}", *_flow_sets(rng, 4096, W, F))
+        for name, case in _edge_cases(W, F).items():
             check(f"{name}_W{W}", *case)
-    check("random_W1", *_flow_sets(rng, 256, 1, 4))
+        check(f"random_W{W}_max_rounds_3", *_flow_sets(rng, 64, W, F),
+              max_rounds=3)
+    for rows in (1, 7, 33):
+        check(f"random_R{rows}", *_flow_sets(rng, rows, path_w, 4 * path_w))
+    check("random_W20_F100", *_flow_sets(rng, 300, 20, 100))
     check("random_path_shape", *_flow_sets(rng, path_rows, path_w,
                                            4 * path_w))
 
-    # timing at the survey's full-width shape and at R = 4096
+    # both routes timed in turns at the survey's full-width shape and at
+    # R 4096: ms is device time of calls replayed from a CUDA graph, and
+    # the eager time (CUDA events around a loop of calls) and the host's
+    # enqueue time per call stand beside it
     timings = {}
     for rows in (path_rows, 4096):
         src, dst, active, caps = (torch.as_tensor(x, device=dev)
                                   for x in _flow_sets(rng, rows, path_w,
                                                       4 * path_w))
-        # a call of a few microseconds: an eager loop times the host's
-        # enqueue, so ms is device time from CUDA-graph replay and the
-        # eager time stands beside it
-        def kernel():
-            return wk.waterfill(src, dst, active, caps, caps)
-        k_ms = cuda_graph_ms(kernel, iters=200)
-        eager_ms = cuda_time_ms(kernel, iters=200)
+
+        def timed(route):
+            def kernel():
+                return wk._waterfill(src, dst, active, caps, caps,
+                                     route=route)
+            return dict(ms=cuda_graph_ms(kernel, iters=200),
+                        eager_ms=cuda_time_ms(kernel, iters=200),
+                        host_us=_host_us(kernel))
+
+        by_route = _turns(wk.ROUTES, timed)
         p_ms = cuda_time_ms(lambda: plain(src, dst, active, caps, caps),
                             iters=20, warmup=2)
-        rates = plain(src, dst, active, caps, caps)
-        nbytes, ops = _waterfill_work(rates, active, 4 * path_w, path_w)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
-        timings[rows] = dict(rows=rows, W=path_w, F=4 * path_w, ms=k_ms,
-                             timed="cuda_graph", eager_ms=eager_ms,
-                             plain_ms=p_ms, bytes=nbytes, ops=ops,
-                             bound_ms=max(t_bytes, t_ops),
-                             bound_by="bytes" if t_bytes >= t_ops
-                             else "operations")
+        rates, rounds = waterfill_rounds(src, dst, active, caps, caps)
+        nbytes, ops = _waterfill_work(rounds, rows, 4 * path_w, path_w)
+        bound_ms, bound_by = _bound(nbytes, ops, F32_OPS_PER_S)
+        warp = by_route["warp"]
+        timings[rows] = dict(
+            rows=rows, W=path_w, F=4 * path_w, order="warp,block,block,warp",
+            routes=by_route,
+            ms=sum(x["ms"] for x in warp) / len(warp), timed="cuda_graph",
+            eager_ms=sum(x["eager_ms"] for x in warp) / len(warp),
+            plain_ms=p_ms, rounds_mean=float(rounds.float().mean()),
+            rounds_max=int(rounds.max()), bytes=nbytes, ops=ops,
+            bound_ms=bound_ms, bound_by=bound_by)
+    path = _path_input_timing(plain, waterfill_rounds, wk)
+    worst_abs = max(worst_abs, path["max_abs"])
     emit("kernel_waterfill", checks=checks, max_abs=worst_abs,
-         max_rel=worst_rel, timing=list(timings.values()))
+         all_bitwise=all(c["bitwise"] for c in checks),
+         timing=list(timings.values()), path_inputs=path, card=CARD)
     return dict(max_abs_err=worst_abs, path=timings[path_rows])
+
+
+def _path_input_timing(plain, waterfill_rounds, wk, plain_sample=16):
+    """K1 on the main path's own inputs: every call of one blevel run of
+    the survey_full_width cell, recorded, then checked bitwise on both
+    routes and replayed from a CUDA graph per route in turns; rounds per
+    row from the plain version."""
+    import torch
+    calls = _record_path_inputs("blevel")
+    n = len(calls)
+    cat = [torch.cat([c[i] for c in calls]) for i in range(5)]
+    want, rounds = waterfill_rounds(*cat)
+    R, F = calls[0][0].shape
+    W = calls[0][3].shape[1]
+    exact, worst = {}, 0.0
+    for route in wk.ROUTES:
+        got = wk._waterfill(*cat, route=route)
+        torch.cuda.synchronize()
+        a, _, exact[route] = _compare(got, want)
+        worst = max(worst, a)
+    if not all(exact.values()):
+        raise AssertionError(f"waterfill disagrees with the plain version "
+                             f"on the main path's inputs: {exact}")
+
+    def timed(route):
+        def replay():
+            for c in calls:
+                wk._waterfill(*c, route=route)
+        return dict(ms=cuda_graph_ms(replay, iters=1) / n,
+                    eager_ms=cuda_time_ms(replay, iters=2, warmup=1) / n)
+
+    by_route = _turns(wk.ROUTES, timed)
+    step = max(1, n // plain_sample)
+    sample = calls[::step][:plain_sample]
+    p_ms = cuda_time_ms(lambda: [plain(*c) for c in sample], iters=2,
+                        warmup=1) / len(sample)
+    nbytes, ops = _waterfill_work(rounds, R * n, F, W)
+    bound_ms, bound_by = _bound(nbytes / n, ops / n, F32_OPS_PER_S)
+    live_rows = rounds > 0
+    warp = by_route["warp"]
+    return dict(calls=n, rows_per_call=R, F=F, W=W, bitwise=exact,
+                max_abs=worst, order="warp,block,block,warp", routes=by_route,
+                ms=sum(x["ms"] for x in warp) / len(warp),
+                plain_ms=p_ms, plain_sample=len(sample),
+                rounds_mean=float(rounds.float().mean()),
+                rounds_mean_live_rows=float(rounds[live_rows].float().mean())
+                if bool(live_rows.any()) else 0.0,
+                rounds_max=int(rounds.max()),
+                rows_without_live_flow=float((~live_rows).float().mean()),
+                bytes_per_call=nbytes / n, ops_per_call=ops / n,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _golden_row(name, spec_graph):
@@ -370,25 +546,14 @@ def phase_survey_mini():
 def phase_survey_full_width(schedulers=("blevel", "greedy")):
     import numpy as np
     import torch
-    from repro_torch.core import parse_cluster
-    from repro_torch.core.graphs import encode_graph_batch, survey_names
-    from repro_torch.core.vectorized import make_grid_runner
     from repro_torch.kernels import WATERFILL_LAUNCHES
-    from repro_torch.survey import FULL_GRID, full_frontier_caps, grid_points
-    encoded, groups = encode_graph_batch(
-        survey_names(FULL_GRID["graphs_per_family"]), seed=0, bucket=True)
-    grp = next(g for g in groups if g.shape[0] == 512)
-    cores = np.asarray(parse_cluster("32x4"), np.int32)[None, :]
-    points = grid_points(FULL_GRID)
+    _, grp, _, points = _full_width_group()
     out = []
-    main_path_launches = 0
+    main_path = dict(count=0, routes=dict.fromkeys(WATERFILL_LAUNCHES.routes,
+                                                   0))
     for sched in schedulers:
-        runners = {impl: make_grid_runner(
-            [encoded[n] for n in grp.names], sched, 32, cores,
-            netmodel="maxmin", shape=grp.shape, batch=grp.batch,
-            device="cuda", waterfill_impl=impl,
-            frontier_caps=full_frontier_caps(grp.shape))
-            for impl in ("auto", "torch")}
+        runners = {impl: _full_width_runner(sched, impl)
+                   for impl in ("auto", "torch")}
         res = {"auto": [], "torch": []}
         # in turns (plain, kernel, kernel, plain) on one card, so host
         # noise does not favour either side
@@ -400,11 +565,14 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
             r = runners[impl](points)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            res[impl].append((r, wall, WATERFILL_LAUNCHES.count))
-        ra, la = res["auto"][0][0], res["auto"][0][2]
+            res[impl].append((r, wall, WATERFILL_LAUNCHES.count,
+                              dict(WATERFILL_LAUNCHES.routes)))
+        ra, la, routes = (res["auto"][0][i] for i in (0, 2, 3))
         rt, lt = res["torch"][0][0], res["torch"][0][2]
-        main_path_launches += la
-        runs = [r for impl in res for r, _, _ in res[impl]]
+        main_path["count"] += la
+        for k, v in routes.items():
+            main_path["routes"][k] += v
+        runs = [x[0] for impl in res for x in res[impl]]
         same_counts = all(np.array_equal(getattr(x, f), getattr(rt, f))
                           for x in runs
                           for f in ("ok", "n_events", "n_steps"))
@@ -414,8 +582,8 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
                                  / np.maximum(np.abs(rt.transferred), 1.0)))
                     for x in runs)
         ev = int(ra.n_events.sum())
-        k_walls = [w for _, w, _ in res["auto"]]
-        p_walls = [w for _, w, _ in res["torch"]]
+        k_walls = [x[1] for x in res["auto"]]
+        p_walls = [x[1] for x in res["torch"]]
         row = dict(scheduler=sched, bucket=grp.label, graphs=list(grp.names),
                    cluster="32x4", points=len(points),
                    rows=int(ra.ok.size), all_ok=bool(ra.ok.all()),
@@ -425,22 +593,33 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
                    kernel_events_per_s=[ev / w for w in k_walls],
                    plain_wall_s=p_walls,
                    plain_events_per_s=[ev / w for w in p_walls],
-                   kernel_launches=[n for _, _, n in res["auto"]],
-                   plain_launches=[n for _, _, n in res["torch"]],
+                   kernel_launches=[x[2] for x in res["auto"]],
+                   kernel_launch_routes=[x[3] for x in res["auto"]],
+                   plain_launches=[x[2] for x in res["torch"]],
                    counts_equal=same_counts, makespan_max_rel=ms_rel,
                    transferred_max_rel=x_rel,
                    bitwise_makespan=all(np.array_equal(x.makespan,
                                                        rt.makespan)
                                         for x in runs))
+        if sched == "blevel":
+            # one more kernel run, outside the timed turns, under the
+            # profiler: how busy the card is during a survey, and K1's
+            # share of its device time
+            prof = _profile(lambda: runners["auto"](points))
+            row["profile"] = {k: prof[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share",
+                "device_events", "k1_device_ms", "k1_share", "top_device")}
         out.append(row)
         if not (row["all_ok"] and same_counts and ms_rel <= RTOL
                 and x_rel <= RTOL and la > 0 and lt == 0
+                and routes["warp"] == la
                 and all(n == 0 for n in row["plain_launches"])):
             emit("survey_full_width", rows=out, ok=False)
             raise AssertionError(f"full-width group disagrees: {row}")
-    emit("survey_full_width", rows=out, ok=True,
-         waterfill_launches=main_path_launches)
-    return main_path_launches
+    emit("survey_full_width", rows=out, ok=True, card=CARD,
+         waterfill_launches=main_path["count"],
+         waterfill_launch_routes=main_path["routes"])
+    return main_path
 
 
 # ------------------------------------------------------- LM kernels, serve
@@ -815,6 +994,9 @@ def _profile(fn):
     on_dev = [e for e in avg if e.device_type == DeviceType.CUDA]
     on_host = [e for e in avg if e.device_type == DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    # K1: both kernels of csrc/waterfill.cu are named waterfill_*
+    k1_ms = sum(e.self_device_time_total for e in on_dev
+                if "waterfill_" in e.key) / 1e3
     # K2: every kernel of csrc/flash_attention.cu is named flash_*
     k2_ms = sum(e.self_device_time_total for e in on_dev
                 if "flash_" in e.key) / 1e3
@@ -828,6 +1010,7 @@ def _profile(fn):
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                 device_idle_share=1 - busy_ms / (wall * 1e3),
                 device_events=sum(e.count for e in on_dev),
+                k1_device_ms=k1_ms, k1_share=k1_ms / busy_ms,
                 k2_device_ms=k2_ms, k2_share=k2_ms / busy_ms,
                 k3_device_ms=k3_ms, k3_share=k3_ms / busy_ms,
                 top_device=[(e.key[:70], e.self_device_time_total / 1e3,
@@ -999,8 +1182,11 @@ def main(argv=None):
     if "survey_mini" in phases:
         phase_survey_mini()
     launches = {}
+    k1_routes = None
     if "survey_full_width" in phases:
-        launches["waterfill"] = phase_survey_full_width()
+        main_path = phase_survey_full_width()
+        launches["waterfill"] = main_path["count"]
+        k1_routes = main_path["routes"]
     fa = ss = None
     if "kernel_flash_attention" in phases:
         fa = phase_kernel_flash_attention()
@@ -1029,8 +1215,10 @@ def main(argv=None):
             bound_ms=res["path"]["bound_ms"],
             bound_by=res["path"]["bound_by"],
             library_ms=res["path"]["library_ms"] if lib else None))
+        # the main path's launches by route (null without its phase)
+        if name == "waterfill":
+            kernels[-1]["launch_routes"] = k1_routes
         if name == "flash_attention":
-            # the main path's launches by route (null without its phase)
             kernels[-1]["launch_routes"] = k2_routes
     if "kernels" in phases:
         emit("kernels", kernels=[dict(name=k["name"],

@@ -42,6 +42,15 @@ def waterfill(src, dst, active, caps_up, caps_down, max_rounds=None):
     Returns: f32[R, F] rates (0 for inactive flows); ``[F]`` for
     unbatched input.
     """
+    return waterfill_rounds(src, dst, active, caps_up, caps_down,
+                            max_rounds)[0]
+
+
+def waterfill_rounds(src, dst, active, caps_up, caps_down, max_rounds=None):
+    """``(rates, rounds)``: the rates of ``waterfill`` and the filling
+    rounds each row took (int64 ``[R]``, or a scalar tensor for
+    unbatched input) — the work a row's solve needs, one round per
+    distinct bottleneck level."""
     unbatched = src.dim() == 1
     if unbatched:
         src, dst, active, caps_up, caps_down = (
@@ -57,6 +66,7 @@ def waterfill(src, dst, active, caps_up, caps_down, max_rounds=None):
     rates = torch.zeros(R, F, dtype=torch.float32, device=src.device)
     frozen = ~active
     row_live = active.any(dim=1)
+    row_rounds = torch.zeros(R, dtype=torch.int64, device=src.device)
     rounds = 0
     # the host reads row_live once per round: rounds are few (a freeze
     # per distinct bottleneck share) and this is the reference path
@@ -83,9 +93,12 @@ def waterfill(src, dst, active, caps_up, caps_down, max_rounds=None):
         left = fma32(-min_share, used, cap)
         cap = torch.where(rl, left.clamp(min=0.0), cap)
         frozen = frozen | (freeze & rl)
+        row_rounds += row_live
         row_live = (active & ~frozen).any(dim=1)
         rounds += 1
-    return rates[0] if unbatched else rates
+    if unbatched:
+        return rates[0], row_rounds[0]
+    return rates, row_rounds
 
 
 def waterfill_simple(active, bandwidth):

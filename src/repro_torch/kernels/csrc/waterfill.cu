@@ -3,29 +3,44 @@
 // Replaces the TPU kernel src/repro/kernels/waterfill.py::_waterfill_kernel
 // (Pallas; wrapper waterfill_batch).  That kernel materialised a one-hot
 // [F, 2W] flow->resource incidence and ran a fixed 2W rounds of matmuls on
-// the MXU.  Here one thread block owns one row (one simulation's flow set)
-// and one thread owns one flow:
-//
-//   * live-flow counts and frozen-flow use per resource are integer
-//     atomicAdds into shared memory — exact in any order, so no incidence
-//     matrix is built;
-//   * the minimal share is a warp-shuffle min followed by a min over the
-//     per-warp partials;
-//   * the row leaves its round loop as soon as no live flow remains
-//     (__syncthreads_or), bounded by max_rounds (2W by default).
+// the MXU.  Each row here (one simulation's flow set) runs its own rounds
+// of count -> share -> min -> freeze -> subtract and stops as soon as no
+// flow of the row is live, bounded by max_rounds (2W by default).
 //
 // What bounds it on the H100: neither bytes nor operations.  A row reads
 // F*9 bytes (src, dst i32 and active u8) plus 2W*4 bytes of capacities
 // and writes F*4 bytes; at the survey's shape (F = 128, W = 32) that is
 // under 2 KB and a few thousand operations per row.  The time is launch
-// latency plus the serial rounds inside a row (each round is a handful of
-// block-wide barriers).  The design keeps every round in shared memory and
-// registers, exits a row early, and runs all rows of a batch in one
-// launch (one block per row); fusing the solver into the simulator's
-// event step is left for later.
+// latency plus the chain of dependent steps in a row's rounds, one round
+// per distinct bottleneck level.  So the design cuts the latency of a
+// round, in two routes picked by the wrapper from (F, W):
+//
+//   * warp route (F <= 128, W <= 32: every survey shape, F = 4W): one warp
+//     owns one row, 4 rows per block of 128 threads, so R 4096 is one wave
+//     on 132 SMs and no block barrier is ever taken.  Lane l holds flows
+//     l, l+32, l+64, l+96 (src, dst, rate in registers) and the resources
+//     l (upload) and W + l (download), each with its capacity in a
+//     register.  Before the rounds, each lane builds the bitmask of the
+//     flows that use each of its resources (shared-memory atomicOr into
+//     the warp's own slice, once per row).  The live flows are a bitmask
+//     too (one ballot word per 32 flows, the same in every lane), so a
+//     round is registers and warp intrinsics only:
+//       - live counts and frozen use per resource: popcounts of
+//         (resource mask & live mask), exact integers;
+//       - the row's minimal share: a 5-step __shfl_xor_sync min;
+//       - the bottleneck resources: two __ballot_sync masks (uploads,
+//         downloads); a live flow freezes if bit src or bit dst is set;
+//       - the frozen flows: one ballot per 32 flows, which also clears
+//         them from the live mask; the row leaves when no bit is left.
+//   * block route (2W > 64 or F > 128, up to max(F, 2W) <= 1024): one
+//     block owns one row and one thread one flow; integer shared-memory
+//     atomicAdds for the counts, a two-level min, block barriers between
+//     the steps of a round.
 //
 // Bitwise equality with the plain PyTorch version
-// (repro_torch/core/vectorized/waterfill.py) is the target:
+// (repro_torch/core/vectorized/waterfill.py) is the target on both
+// routes:
+//   * counts and use are exact integers, converted once to float;
 //   * the reference threshold min_share * (1.0 + 1e-9) is a float32
 //     multiply by a factor that rounds to 1.0f, so the test here is
 //     share <= min_share, in float;
@@ -36,6 +51,8 @@
 //     the build passes --fmad=false;
 //   * the share is an IEEE division (__fdiv_rn); never build with
 //     --use_fast_math.
+// Flows whose worker ids fall outside [0, W) are treated as inactive and
+// touch no resource.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -43,23 +60,131 @@
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxThreads = 1024;
+// warp route: rows per block, and the largest F and W it takes
+constexpr int kWarpRows = 4;
+constexpr int kWarpMaxSlots = 4;  // flows per lane: F <= 128
+constexpr int kWarpMaxW = 32;     // one upload and one download per lane
 
 __device__ __forceinline__ float warp_min(float v) {
   for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = fminf(v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
 
-// Shared memory layout (dynamic): int count[2W], int used[2W],
-// float cap[2W], int is_bn[2W], float warp_part[32], float min_share.
-__global__ void waterfill_kernel(const int32_t* __restrict__ src,
-                                 const int32_t* __restrict__ dst,
-                                 const uint8_t* __restrict__ active,
-                                 const float* __restrict__ caps_up,
-                                 const float* __restrict__ caps_down,
-                                 float* __restrict__ rates,
-                                 int F, int W, int max_rounds) {
+// One warp per row; NK = ceil(F / 32) flows per lane.
+template <int NK>
+__global__ void __launch_bounds__(32 * kWarpRows)
+waterfill_warp_kernel(const int32_t* __restrict__ src,
+                      const int32_t* __restrict__ dst,
+                      const uint8_t* __restrict__ active,
+                      const float* __restrict__ caps_up,
+                      const float* __restrict__ caps_down,
+                      float* __restrict__ rates, int R, int F, int W,
+                      int max_rounds) {
+  // per warp: the flows of each upload / download resource, as NK words
+  __shared__ unsigned masks[kWarpRows][2][kWarpMaxW][NK];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int row = blockIdx.x * kWarpRows + wib;
+  if (row >= R) return;  // the whole warp: nothing below syncs the block
+  const long long fbase = static_cast<long long>(row) * F;
+  const long long wbase = static_cast<long long>(row) * W;
+  unsigned(*up)[NK] = masks[wib][0];
+  unsigned(*down)[NK] = masks[wib][1];
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    up[lane][k] = 0u;
+    down[lane][k] = 0u;
+  }
+  __syncwarp();
+
+  int s[NK], d[NK];
+  unsigned live[NK];  // bit l of live[k]: flow 32k + l is live (all lanes)
+  float rate[NK];
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int f = 32 * k + lane;
+    bool act = false;
+    s[k] = 0;
+    d[k] = 0;
+    if (f < F) {
+      const int u = src[fbase + f];
+      const int v = dst[fbase + f];
+      act = active[fbase + f] != 0 && u >= 0 && u < W && v >= 0 && v < W;
+      if (act) {
+        s[k] = u;
+        d[k] = v;
+        atomicOr(&up[u][k], 1u << lane);
+        atomicOr(&down[v][k], 1u << lane);
+      }
+    }
+    live[k] = __ballot_sync(kFull, act);
+    rate[k] = 0.0f;
+  }
+  __syncwarp();
+  unsigned mu[NK], md[NK];  // this lane's resources: the flows using them
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    mu[k] = up[lane][k];
+    md[k] = down[lane][k];
+  }
+  float cap_u = lane < W ? caps_up[wbase + lane] : 0.0f;
+  float cap_d = lane < W ? caps_down[wbase + lane] : 0.0f;
+
+  unsigned any = 0u;
+#pragma unroll
+  for (int k = 0; k < NK; ++k) any |= live[k];
+  for (int round = 0; round < max_rounds && any; ++round) {
+    int cu = 0, cd = 0;
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      cu += __popc(mu[k] & live[k]);
+      cd += __popc(md[k] & live[k]);
+    }
+    const float su = cu > 0 ? __fdiv_rn(cap_u, static_cast<float>(cu))
+                            : CUDART_INF_F;
+    const float sd = cd > 0 ? __fdiv_rn(cap_d, static_cast<float>(cd))
+                            : CUDART_INF_F;
+    const float min_share = warp_min(fminf(su, sd));
+    const unsigned bn_u = __ballot_sync(kFull, cu > 0 && su <= min_share);
+    const unsigned bn_d = __ballot_sync(kFull, cd > 0 && sd <= min_share);
+    int uu = 0, ud = 0;
+    any = 0u;
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      const bool freeze = ((live[k] >> lane) & 1u)
+          && (((bn_u >> s[k]) | (bn_d >> d[k])) & 1u);
+      if (freeze) rate[k] = min_share;
+      const unsigned z = __ballot_sync(kFull, freeze);
+      uu += __popc(mu[k] & z);
+      ud += __popc(md[k] & z);
+      live[k] &= ~z;
+      any |= live[k];
+    }
+    cap_u = fmaxf(__fmaf_rn(-min_share, static_cast<float>(uu), cap_u),
+                  0.0f);
+    cap_d = fmaxf(__fmaf_rn(-min_share, static_cast<float>(ud), cap_d),
+                  0.0f);
+  }
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int f = 32 * k + lane;
+    if (f < F) rates[fbase + f] = rate[k];
+  }
+}
+
+// One block per row, one thread per flow.  Shared memory (dynamic):
+// int count[2W], int used[2W], float cap[2W], int is_bn[2W],
+// float warp_part[32], float min_share.
+__global__ void waterfill_block_kernel(const int32_t* __restrict__ src,
+                                       const int32_t* __restrict__ dst,
+                                       const uint8_t* __restrict__ active,
+                                       const float* __restrict__ caps_up,
+                                       const float* __restrict__ caps_down,
+                                       float* __restrict__ rates,
+                                       int F, int W, int max_rounds) {
   extern __shared__ unsigned char smem_raw[];
   const int n_res = 2 * W;
   int* count = reinterpret_cast<int*>(smem_raw);
@@ -77,8 +202,7 @@ __global__ void waterfill_kernel(const int32_t* __restrict__ src,
   const long long fbase = static_cast<long long>(row) * F;
   const long long wbase = static_cast<long long>(row) * W;
 
-  // one flow per thread; flows whose worker ids fall outside [0, W)
-  // touch no resource (the wrapper documents ids must be in range)
+  // one flow per thread
   bool act = false;
   int ru = 0, rd = 0;
   if (tid < F) {
@@ -143,22 +267,62 @@ __global__ void waterfill_kernel(const int32_t* __restrict__ src,
   if (tid < F) rates[fbase + tid] = rate;
 }
 
+template <int NK>
+void launch_warp(const void* src, const void* dst, const void* active,
+                 const void* caps_up, const void* caps_down, void* rates,
+                 int R, int F, int W, int max_rounds, cudaStream_t stream) {
+  const int blocks = (R + kWarpRows - 1) / kWarpRows;
+  waterfill_warp_kernel<NK><<<blocks, 32 * kWarpRows, 0, stream>>>(
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
+      static_cast<const uint8_t*>(active),
+      static_cast<const float*>(caps_up),
+      static_cast<const float*>(caps_down), static_cast<float*>(rates), R, F,
+      W, max_rounds);
+}
+
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  Launches on `stream`,
-// allocates nothing, does not synchronise; returns cudaGetLastError()
-// (0 on success).  The caller guarantees R > 0, F > 0, W > 0 and
-// max(F, 2W) <= 1024.
+// Plain C entry point, loaded with ctypes.  route 0 is the warp route
+// (F <= 128, W <= 32), route 1 the block route (max(F, 2W) <= 1024).
+// Launches on `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a shape
+// the route does not take.  The caller guarantees R > 0, F > 0, W > 0.
 extern "C" int waterfill_launch(const void* src, const void* dst,
                                 const void* active, const void* caps_up,
                                 const void* caps_down, void* rates, int R,
-                                int F, int W, int max_rounds, void* stream) {
-  const int need = F > 2 * W ? F : 2 * W;
-  if (R <= 0 || F <= 0 || W <= 0 || need > kMaxThreads)
+                                int F, int W, int max_rounds, int route,
+                                void* stream) {
+  if (R <= 0 || F <= 0 || W <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 0) {
+    if (F > 32 * kWarpMaxSlots || W > kWarpMaxW)
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch ((F + 31) / 32) {
+      case 1:
+        launch_warp<1>(src, dst, active, caps_up, caps_down, rates, R, F, W,
+                       max_rounds, st);
+        break;
+      case 2:
+        launch_warp<2>(src, dst, active, caps_up, caps_down, rates, R, F, W,
+                       max_rounds, st);
+        break;
+      case 3:
+        launch_warp<3>(src, dst, active, caps_up, caps_down, rates, R, F, W,
+                       max_rounds, st);
+        break;
+      default:
+        launch_warp<4>(src, dst, active, caps_up, caps_down, rates, R, F, W,
+                       max_rounds, st);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int need = F > 2 * W ? F : 2 * W;
+  if (need > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = ((need + 31) / 32) * 32;
   const size_t smem = static_cast<size_t>(2 * W) * 16 + 33 * sizeof(float);
-  waterfill_kernel<<<R, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  waterfill_block_kernel<<<R, threads, smem, st>>>(
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
       static_cast<const uint8_t*>(active),
       static_cast<const float*>(caps_up),

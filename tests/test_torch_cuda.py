@@ -57,6 +57,103 @@ def test_kernel_counts_launches_and_checks_inputs(dev):
         waterfill(big[0], big[1], big[2], big[3], big[3])
 
 
+def waterfill_case(name, W, device):
+    """Inputs ``(src, dst, active, caps, max_rounds)`` of one named K1
+    case at ``W`` workers, ``F = 4W`` flows."""
+    F = 4 * W
+    src, dst, active, caps = flow_sets(W + 100, 8, W, F, "cpu")
+    max_rounds = None
+    if name == "all_inactive":
+        active[:] = False
+    elif name == "single_source":
+        src[:] = 0
+        dst[:] = torch.from_numpy(1 + np.arange(F) % max(W - 1, 1)) % W
+        active[:] = True
+        caps[:] = 90.0
+    elif name == "equal_share_ties":
+        src[:] = torch.arange(F) % W
+        dst[:] = (src + 1) % W
+        active[:] = True
+        caps[:] = 64.0
+    elif name == "ids_out_of_range":
+        src[:, ::3] = torch.from_numpy(np.where(np.arange(8)[:, None] % 2,
+                                                W, -1).astype(np.int32))
+        dst[:, 1::3] = W + 3
+    elif name == "max_rounds_2":
+        max_rounds = 2
+    elif name in ("rows_1", "rows_7"):     # R off the 4 rows per block
+        src, dst, active, caps = flow_sets(W + 200, int(name[5:]), W, F,
+                                           "cpu")
+    return [x.to(device) for x in (src, dst, active, caps)] + [max_rounds]
+
+
+def waterfill_plain_of(src, dst, active, caps, max_rounds=None):
+    """The plain version, with flows whose ids fall outside ``[0, W)``
+    made inactive (what the kernels do with them)."""
+    from repro_torch.core.vectorized.waterfill import waterfill as plain
+    W = caps.shape[1]
+    inside = (src >= 0) & (src < W) & (dst >= 0) & (dst < W)
+    return plain(src.clamp(0, W - 1), dst.clamp(0, W - 1), active & inside,
+                 caps, caps, max_rounds)
+
+
+@pytest.mark.parametrize("route", ["warp", "block"])
+@pytest.mark.parametrize("W", [1, 8, 16, 32])
+def test_each_waterfill_route_equals_plain_version_bitwise(dev, route, W):
+    from repro_torch.kernels import waterfill as wk
+    src, dst, active, caps = flow_sets(W + 7, 1024, W, 4 * W, dev)
+    got = wk._waterfill(src, dst, active, caps, caps, route=route)
+    want = waterfill_plain_of(src, dst, active, caps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["warp", "block"])
+@pytest.mark.parametrize("case", ["all_inactive", "single_source",
+                                  "equal_share_ties", "ids_out_of_range",
+                                  "max_rounds_2", "rows_1", "rows_7"])
+@pytest.mark.parametrize("W", [4, 32])
+def test_waterfill_routes_on_edge_cases_bitwise(dev, route, case, W):
+    from repro_torch.kernels import waterfill as wk
+    src, dst, active, caps, max_rounds = waterfill_case(case, W, dev)
+    got = wk._waterfill(src, dst, active, caps, caps, max_rounds,
+                        route=route)
+    want = waterfill_plain_of(src, dst, active, caps, max_rounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if case == "all_inactive":
+        assert not got.any()
+
+
+def test_waterfill_block_route_at_w64_f256(dev):
+    from repro_torch.kernels import waterfill as wk
+    src, dst, active, caps = flow_sets(64, 300, 64, 256, dev)
+    assert wk.route_for(256, 64) == "block"
+    for max_rounds in (None, 5):
+        got = wk._waterfill(src, dst, active, caps, caps, max_rounds,
+                            route="block")
+        want = waterfill_plain_of(src, dst, active, caps, max_rounds)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="warp route"):
+        wk._waterfill(src, dst, active, caps, caps, route="warp")
+
+
+@pytest.mark.parametrize("F,W,route", [(128, 32, "warp"), (20, 5, "warp"),
+                                       (129, 32, "block"),
+                                       (128, 33, "block")])
+def test_waterfill_counts_launches_by_route(dev, F, W, route):
+    from repro_torch.kernels import WATERFILL_LAUNCHES as K1
+    from repro_torch.kernels.waterfill import waterfill
+    src, dst, active, caps = flow_sets(F, 5, W, F, dev)
+    before, routes = K1.count, dict(K1.routes)
+    waterfill(src, dst, active, caps, caps)
+    torch.cuda.synchronize()
+    assert K1.count == before + 1
+    routes[route] += 1
+    assert K1.routes == routes
+
+
 def test_simulator_through_the_kernel_equals_the_plain_version(dev):
     from repro_torch.core import MiB
     from repro_torch.core.graphs import encode_graph_batch, survey_names

@@ -19,6 +19,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core.vectorized.waterfill import waterfill as jnp_waterfill  # noqa: E402
 from repro.kernels.waterfill import waterfill_batch  # noqa: E402
 from repro_torch.core.vectorized.waterfill import waterfill  # noqa: E402
+from repro_torch.core.vectorized.waterfill import waterfill_rounds  # noqa: E402
+from repro_torch.kernels import waterfill as wk  # noqa: E402
 from repro_torch.kernels.waterfill import waterfill as kernel_waterfill  # noqa: E402
 from repro_torch.kernels.waterfill import LAUNCHES  # noqa: E402
 
@@ -144,12 +146,31 @@ def test_rows_are_independent():
 def test_wrapper_runs_the_plain_version_for_cpu_tensors():
     src, dst, active, caps = (torch.from_numpy(x)
                               for x in flow_sets(9, 10, 8, 32))
-    before = LAUNCHES.count
+    before, routes = LAUNCHES.count, dict(LAUNCHES.routes)
     got = kernel_waterfill(src, dst, active, caps, caps)
-    assert LAUNCHES.count == before          # no kernel launch on the CPU
+    # no kernel launch on the CPU, on any route
+    assert LAUNCHES.count == before and LAUNCHES.routes == routes
     assert torch.equal(got, waterfill(src, dst, active, caps, caps))
     one = kernel_waterfill(src[0], dst[0], active[0], caps[0], caps[0])
     assert torch.equal(one, got[0])
+
+
+@pytest.mark.parametrize("route", wk.ROUTES)
+def test_forced_route_runs_the_plain_version_for_cpu_tensors(route):
+    src, dst, active, caps = (torch.from_numpy(x)
+                              for x in flow_sets(4, 6, 8, 32))
+    before, routes = LAUNCHES.count, dict(LAUNCHES.routes)
+    got = wk._waterfill(src, dst, active, caps, caps, 3, route=route)
+    assert LAUNCHES.count == before and LAUNCHES.routes == routes
+    assert torch.equal(got, waterfill(src, dst, active, caps, caps, 3))
+
+
+@pytest.mark.parametrize("F,W,route", [
+    (128, 32, "warp"), (129, 32, "block"), (128, 33, "block"),
+    (129, 33, "block"), (4, 1, "warp"), (1, 1, "warp"), (100, 20, "warp"),
+    (256, 64, "block"), (1024, 512, "block")])
+def test_route_is_picked_by_shape(F, W, route):
+    assert wk.route_for(F, W) == route
 
 
 def test_wrapper_checks_dtype_and_shape():
@@ -157,10 +178,51 @@ def test_wrapper_checks_dtype_and_shape():
                               for x in flow_sets(2, 4, 4, 8))
     with pytest.raises(TypeError, match="float32"):
         kernel_waterfill(src, dst, active, caps.double(), caps.double())
+    with pytest.raises(TypeError, match="caps_down"):
+        kernel_waterfill(src, dst, active, caps, caps.half())
     with pytest.raises(ValueError, match="shape"):
         kernel_waterfill(src, dst[:, :4], active, caps, caps)
+    with pytest.raises(ValueError, match="shape"):
+        kernel_waterfill(src, dst, active[:3], caps, caps)
     with pytest.raises(ValueError, match="caps"):
         kernel_waterfill(src, dst, active, caps[:2], caps[:2])
+    with pytest.raises(ValueError, match="caps"):
+        kernel_waterfill(src, dst, active, caps, caps[:, :2])
+    with pytest.raises(ValueError, match="several devices"):
+        kernel_waterfill(src, dst, active, caps, caps.to("meta"))
+    with pytest.raises(ValueError, match="route"):
+        wk._waterfill(src, dst, active, caps, caps, route="grid")
+    s33, d33, a33, c33 = (torch.from_numpy(x) for x in flow_sets(3, 2, 33, 8))
+    with pytest.raises(ValueError, match="warp route"):
+        wk._waterfill(s33, d33, a33, c33, c33, route="warp")
+
+
+def test_filling_rounds_are_what_a_row_needs():
+    """``waterfill_rounds`` gives ``waterfill``'s rates and, per row, the
+    rounds it took: a bound of that many rounds changes nothing, one
+    round fewer leaves the row's last level unfrozen, and a row with no
+    active flow takes none."""
+    src, dst, active, caps = (torch.from_numpy(x)
+                              for x in flow_sets(11, 24, 8, 32))
+    active[5] = False
+    rates, rounds = waterfill_rounds(src, dst, active, caps, caps)
+    assert torch.equal(rates, waterfill(src, dst, active, caps, caps))
+    assert rounds.dtype == torch.int64 and rounds.shape == (24,)
+    assert int(rounds[5]) == 0 and bool((rounds[:5] > 0).all())
+    assert torch.equal(waterfill(src, dst, active, caps, caps,
+                                 max_rounds=int(rounds.max())), rates)
+    for r in range(24):
+        k = int(rounds[r])
+        if k == 0:
+            assert not rates[r].any()
+            continue
+        cut = waterfill(src[r], dst[r], active[r], caps[r], caps[r],
+                        max_rounds=k - 1)
+        assert not torch.equal(cut, rates[r])
+    one_rates, one_rounds = waterfill_rounds(src[0], dst[0], active[0],
+                                             caps[0], caps[0])
+    assert torch.equal(one_rates, rates[0])
+    assert one_rounds.dim() == 0 and int(one_rounds) == int(rounds[0])
 
 
 def test_cuda_request_raises_without_a_card():
