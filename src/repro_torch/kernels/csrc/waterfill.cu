@@ -18,20 +18,27 @@
 //   * warp route (F <= 128, W <= 32: every survey shape, F = 4W): one warp
 //     owns one row, 4 rows per block of 128 threads, so R 4096 is one wave
 //     on 132 SMs and no block barrier is ever taken.  Lane l holds flows
-//     l, l+32, l+64, l+96 (src, dst, rate in registers) and the resources
-//     l (upload) and W + l (download), each with its capacity in a
+//     l, l+32, l+64, l+96 (their rates in registers) and the resources l
+//     (upload) and W + l (download), each with its capacity in a
 //     register.  Before the rounds, each lane builds the bitmask of the
 //     flows that use each of its resources (shared-memory atomicOr into
 //     the warp's own slice, once per row).  The live flows are a bitmask
-//     too (one ballot word per 32 flows, the same in every lane), so a
-//     round is registers and warp intrinsics only:
-//       - live counts and frozen use per resource: popcounts of
-//         (resource mask & live mask), exact integers;
-//       - the row's minimal share: a 5-step __shfl_xor_sync min;
-//       - the bottleneck resources: two __ballot_sync masks (uploads,
-//         downloads); a live flow freezes if bit src or bit dst is set;
-//       - the frozen flows: one ballot per 32 flows, which also clears
-//         them from the live mask; the row leaves when no bit is left.
+//     too (one word per 32 flows, the same in every lane), so a round is
+//     registers and warp reductions only, each step one instruction deep:
+//       - frozen use per resource: popcounts of (resource mask & frozen
+//         mask), exact integers; the live counts are the masks' popcounts
+//         less the use, round by round;
+//       - the shares: every lane divides, so no branch splits the warp;
+//       - the row's minimal share: one redux.sync min over the shares'
+//         bits mapped to integers of the same order;
+//       - the frozen flows: one redux.sync OR per 32 flows of the masks
+//         of the bottleneck resources, and'ed with the live mask (a live
+//         flow freezes if its upload or its download is a bottleneck);
+//         it also clears them from the live mask, and the row leaves when
+//         no bit is left.
+//     (A first version took the min in 5 shuffle steps and found the
+//     frozen flows by ballots of per-flow tests; PERF.md has the times of
+//     both.)
 //   * block route (2W > 64 or F > 128, up to max(F, 2W) <= 1024): one
 //     block owns one row and one thread one flow; integer shared-memory
 //     atomicAdds for the counts, a two-level min, block barriers between
@@ -73,6 +80,19 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+// A float's bits as an int of the same order (for every value but NaN;
+// -0 sorts below +0), and back: min over floats as one integer redux.
+__device__ __forceinline__ int ordered_bits(float x) {
+  const int i = __float_as_int(x);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float warp_min_redux(float v) {
+  const int m = __reduce_min_sync(kFull, ordered_bits(v));
+  return __int_as_float(m >= 0 ? m : m ^ 0x7fffffff);
+}
+
+
 // One warp per row; NK = ceil(F / 32) flows per lane.
 template <int NK>
 __global__ void __launch_bounds__(32 * kWarpRows)
@@ -100,69 +120,75 @@ waterfill_warp_kernel(const int32_t* __restrict__ src,
   }
   __syncwarp();
 
-  int s[NK], d[NK];
-  unsigned live[NK];  // bit l of live[k]: flow 32k + l is live (all lanes)
-  float rate[NK];
+  // every load first, so that their latencies overlap; only the last
+  // slot of flows can run past F
+  int u[NK], v[NK];
+  bool act[NK];
 #pragma unroll
   for (int k = 0; k < NK; ++k) {
     const int f = 32 * k + lane;
-    bool act = false;
-    s[k] = 0;
-    d[k] = 0;
-    if (f < F) {
-      const int u = src[fbase + f];
-      const int v = dst[fbase + f];
-      act = active[fbase + f] != 0 && u >= 0 && u < W && v >= 0 && v < W;
-      if (act) {
-        s[k] = u;
-        d[k] = v;
-        atomicOr(&up[u][k], 1u << lane);
-        atomicOr(&down[v][k], 1u << lane);
-      }
+    u[k] = v[k] = -1;
+    act[k] = false;
+    if (k < NK - 1 || f < F) {
+      u[k] = src[fbase + f];
+      v[k] = dst[fbase + f];
+      act[k] = active[fbase + f] != 0;
     }
-    live[k] = __ballot_sync(kFull, act);
-    rate[k] = 0.0f;
-  }
-  __syncwarp();
-  unsigned mu[NK], md[NK];  // this lane's resources: the flows using them
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    mu[k] = up[lane][k];
-    md[k] = down[lane][k];
   }
   float cap_u = lane < W ? caps_up[wbase + lane] : 0.0f;
   float cap_d = lane < W ? caps_down[wbase + lane] : 0.0f;
 
+  unsigned live[NK];  // bit l of live[k]: flow 32k + l is live (all lanes)
+  float rate[NK];
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    act[k] = act[k] && u[k] >= 0 && u[k] < W && v[k] >= 0 && v[k] < W;
+    if (act[k]) {
+      atomicOr(&up[u[k]][k], 1u << lane);
+      atomicOr(&down[v[k]][k], 1u << lane);
+    }
+    live[k] = __ballot_sync(kFull, act[k]);
+    rate[k] = 0.0f;
+  }
+  __syncwarp();
+  unsigned mu[NK], md[NK];  // this lane's resources: the flows using them
+  int cu = 0, cd = 0;       // ... and how many of them are live
   unsigned any = 0u;
 #pragma unroll
-  for (int k = 0; k < NK; ++k) any |= live[k];
+  for (int k = 0; k < NK; ++k) {
+    mu[k] = up[lane][k];
+    md[k] = down[lane][k];
+    cu += __popc(mu[k]);
+    cd += __popc(md[k]);
+    any |= live[k];
+  }
+
   for (int round = 0; round < max_rounds && any; ++round) {
-    int cu = 0, cd = 0;
-#pragma unroll
-    for (int k = 0; k < NK; ++k) {
-      cu += __popc(mu[k] & live[k]);
-      cd += __popc(md[k] & live[k]);
-    }
-    const float su = cu > 0 ? __fdiv_rn(cap_u, static_cast<float>(cu))
-                            : CUDART_INF_F;
-    const float sd = cd > 0 ? __fdiv_rn(cap_d, static_cast<float>(cd))
-                            : CUDART_INF_F;
-    const float min_share = warp_min(fminf(su, sd));
-    const unsigned bn_u = __ballot_sync(kFull, cu > 0 && su <= min_share);
-    const unsigned bn_d = __ballot_sync(kFull, cd > 0 && sd <= min_share);
+    // every lane divides (1 / 1 where a resource has no live flow), so
+    // no branch splits the warp around the division
+    const float qu = __fdiv_rn(cu > 0 ? cap_u : 1.0f,
+                               static_cast<float>(cu > 0 ? cu : 1));
+    const float qd = __fdiv_rn(cd > 0 ? cap_d : 1.0f,
+                               static_cast<float>(cd > 0 ? cd : 1));
+    const float su = cu > 0 ? qu : CUDART_INF_F;
+    const float sd = cd > 0 ? qd : CUDART_INF_F;
+    const float min_share = warp_min_redux(fminf(su, sd));
+    const bool bn_u = cu > 0 && su <= min_share;
+    const bool bn_d = cd > 0 && sd <= min_share;
     int uu = 0, ud = 0;
     any = 0u;
 #pragma unroll
     for (int k = 0; k < NK; ++k) {
-      const bool freeze = ((live[k] >> lane) & 1u)
-          && (((bn_u >> s[k]) | (bn_d >> d[k])) & 1u);
-      if (freeze) rate[k] = min_share;
-      const unsigned z = __ballot_sync(kFull, freeze);
+      const unsigned z = live[k] & __reduce_or_sync(
+          kFull, (bn_u ? mu[k] : 0u) | (bn_d ? md[k] : 0u));
+      if ((z >> lane) & 1u) rate[k] = min_share;
       uu += __popc(mu[k] & z);
       ud += __popc(md[k] & z);
       live[k] &= ~z;
       any |= live[k];
     }
+    cu -= uu;
+    cd -= ud;
     cap_u = fmaxf(__fmaf_rn(-min_share, static_cast<float>(uu), cap_u),
                   0.0f);
     cap_d = fmaxf(__fmaf_rn(-min_share, static_cast<float>(ud), cap_d),

@@ -77,33 +77,36 @@ def _require_f32(**arrays):
 
 
 def _check(src, dst, active, caps_up, caps_down):
-    if caps_up.dtype != torch.float32 or caps_down.dtype != torch.float32:
+    """``(device, R, F, W)`` of a call, or raises (the simulator calls
+    this on every event step: one read of each shape and device)."""
+    if caps_up.dtype is not torch.float32 \
+            or caps_down.dtype is not torch.float32:
         _require_f32(caps_up=caps_up, caps_down=caps_down)
-    if src.dim() != 2 or dst.shape != src.shape or active.shape != src.shape:
+    shape, caps = src.shape, caps_up.shape
+    if len(shape) != 2 or dst.shape != shape or active.shape != shape:
         raise ValueError(f"waterfill: src/dst/active must share one [R, F] "
-                         f"shape, got {tuple(src.shape)}, "
+                         f"shape, got {tuple(shape)}, "
                          f"{tuple(dst.shape)}, {tuple(active.shape)}")
-    R = src.shape[0]
-    if caps_up.dim() != 2 or caps_up.shape[0] != R \
-            or caps_down.shape != caps_up.shape:
-        raise ValueError(f"waterfill: caps must be [R, W] with R={R}, got "
-                         f"{tuple(caps_up.shape)}, {tuple(caps_down.shape)}")
+    if len(caps) != 2 or caps[0] != shape[0] or caps_down.shape != caps:
+        raise ValueError(f"waterfill: caps must be [R, W] with R="
+                         f"{shape[0]}, got {tuple(caps)}, "
+                         f"{tuple(caps_down.shape)}")
     dev = src.device
     if not dev == dst.device == active.device == caps_up.device \
             == caps_down.device:
         devs = {t.device for t in (src, dst, active, caps_up, caps_down)}
         raise ValueError(f"waterfill: tensors on several devices {devs}")
-    return dev
+    return dev, shape[0], shape[1], caps[1]
 
 
 def _check_cuda(src, dst, active, dev):
     if dev.type != "cuda":
         raise ValueError(f"waterfill: no kernel for device {dev}")
     for name, x in (("src", src), ("dst", dst)):
-        if x.dtype != torch.int32:
+        if x.dtype is not torch.int32:
             raise TypeError(f"waterfill: {name!r} must be int32, got "
                             f"{x.dtype}")
-    if active.dtype != torch.bool and active.dtype != torch.uint8:
+    if active.dtype is not torch.bool and active.dtype is not torch.uint8:
         raise TypeError(f"waterfill: 'active' must be bool or uint8, got "
                         f"{active.dtype}")
 
@@ -137,9 +140,7 @@ def _waterfill(src, dst, active, caps_up, caps_down, max_rounds=None,
     if unbatched:
         src, dst, active, caps_up, caps_down = (
             x.unsqueeze(0) for x in (src, dst, active, caps_up, caps_down))
-    dev = _check(src, dst, active, caps_up, caps_down)
-    R, F = src.shape
-    W = caps_up.shape[1]
+    dev, R, F, W = _check(src, dst, active, caps_up, caps_down)
     if route is None:
         route = route_for(F, W)
     elif route not in ROUTES:
