@@ -92,6 +92,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -124,8 +125,14 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase, with the seconds since the script began
+    (``at_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 # the card's nvidia-smi name and power limit, set by phase_env; the LM
@@ -229,9 +236,9 @@ def _edge_cases(W, F):
 
 
 def _plain_rates(plain, src, dst, active, caps, max_rounds=None):
-    """The plain version's rates and rounds per row, with flows whose
-    ids fall outside ``[0, W)`` made inactive (what the kernels do with
-    them; the plain version indexes by id)."""
+    """The plain version's rates, with flows whose ids fall outside
+    ``[0, W)`` made inactive (what the kernels do with them; the plain
+    version indexes by id)."""
     W = caps.shape[1]
     inside = (src >= 0) & (src < W) & (dst >= 0) & (dst < W)
     return plain(src.clamp(0, W - 1), dst.clamp(0, W - 1),
@@ -258,6 +265,7 @@ def _waterfill_work(rounds, R, F, W):
     return nbytes, ops
 
 
+@functools.lru_cache(maxsize=None)
 def _full_width_group():
     """(encoded graphs, the T512 group, cores, points) of the full grid's
     T512 bucket on 32x4 — the survey_full_width cell."""
@@ -265,18 +273,11 @@ def _full_width_group():
     from repro_torch.core import parse_cluster
     from repro_torch.core.graphs import encode_graph_batch, survey_names
     from repro_torch.survey import FULL_GRID, grid_points
-    global _FULL_WIDTH
-    if _FULL_WIDTH is None:
-        encoded, groups = encode_graph_batch(
-            survey_names(FULL_GRID["graphs_per_family"]), seed=0,
-            bucket=True)
-        grp = next(g for g in groups if g.shape[0] == 512)
-        cores = np.asarray(parse_cluster("32x4"), np.int32)[None, :]
-        _FULL_WIDTH = (encoded, grp, cores, grid_points(FULL_GRID))
-    return _FULL_WIDTH
-
-
-_FULL_WIDTH = None
+    encoded, groups = encode_graph_batch(
+        survey_names(FULL_GRID["graphs_per_family"]), seed=0, bucket=True)
+    grp = next(g for g in groups if g.shape[0] == 512)
+    cores = np.asarray(parse_cluster("32x4"), np.int32)[None, :]
+    return encoded, grp, cores, grid_points(FULL_GRID)
 
 
 def _full_width_runner(sched, impl):
@@ -320,18 +321,22 @@ def _turns(routes, fn):
     return out
 
 
-def _host_us(fn, calls=500):
+def _host_us(fn, calls=200, repeats=5):
     """Host microseconds per call of ``fn`` (the enqueue, on the host's
-    clock; the device is left to drain after the loop)."""
+    clock; the device drains after each loop): the least and the median
+    of ``repeats`` loops, since the host's clock is noisy."""
     import torch
     fn()
+    out = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e6
+    out.sort()
+    return dict(min=out[0], median=out[len(out) // 2])
 
 
 def phase_kernel_waterfill(seed=0, path_rows=96, path_w=32):
@@ -402,7 +407,7 @@ def phase_kernel_waterfill(seed=0, path_rows=96, path_w=32):
         by_route = _turns(wk.ROUTES, timed)
         p_ms = cuda_time_ms(lambda: plain(src, dst, active, caps, caps),
                             iters=20, warmup=2)
-        rates, rounds = waterfill_rounds(src, dst, active, caps, caps)
+        _, rounds = waterfill_rounds(src, dst, active, caps, caps)
         nbytes, ops = _waterfill_work(rounds, rows, 4 * path_w, path_w)
         bound_ms, bound_by = _bound(nbytes, ops, F32_OPS_PER_S)
         warp = by_route["warp"]
@@ -414,7 +419,7 @@ def phase_kernel_waterfill(seed=0, path_rows=96, path_w=32):
             plain_ms=p_ms, rounds_mean=float(rounds.float().mean()),
             rounds_max=int(rounds.max()), bytes=nbytes, ops=ops,
             bound_ms=bound_ms, bound_by=bound_by)
-    path = _path_input_timing(plain, waterfill_rounds, wk)
+    path = _path_input_timing()
     worst_abs = max(worst_abs, path["max_abs"])
     emit("kernel_waterfill", checks=checks, max_abs=worst_abs,
          all_bitwise=all(c["bitwise"] for c in checks),
@@ -422,12 +427,15 @@ def phase_kernel_waterfill(seed=0, path_rows=96, path_w=32):
     return dict(max_abs_err=worst_abs, path=timings[path_rows])
 
 
-def _path_input_timing(plain, waterfill_rounds, wk, plain_sample=16):
+def _path_input_timing(plain_sample=16):
     """K1 on the main path's own inputs: every call of one blevel run of
     the survey_full_width cell, recorded, then checked bitwise on both
     routes and replayed from a CUDA graph per route in turns; rounds per
-    row from the plain version."""
+    row from the plain version, which is timed on a sample of the calls."""
     import torch
+    from repro_torch.core.vectorized.waterfill import waterfill as plain
+    from repro_torch.core.vectorized.waterfill import waterfill_rounds
+    from repro_torch.kernels import waterfill as wk
     calls = _record_path_inputs("blevel")
     n = len(calls)
     cat = [torch.cat([c[i] for c in calls]) for i in range(5)]
@@ -605,10 +613,7 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
             # one more kernel run, outside the timed turns, under the
             # profiler: how busy the card is during a survey, and K1's
             # share of its device time
-            prof = _profile(lambda: runners["auto"](points))
-            row["profile"] = {k: prof[k] for k in (
-                "wall_ms", "device_busy_ms", "device_idle_share",
-                "device_events", "k1_device_ms", "k1_share", "top_device")}
+            row["profile"] = _device_profile(lambda: runners["auto"](points))
         out.append(row)
         if not (row["all_ok"] and same_counts and ms_rel <= RTOL
                 and x_rel <= RTOL and la > 0 and lt == 0
@@ -974,6 +979,40 @@ def phase_kernel_ssd(seed=0):
     return dict(max_abs_err=worst, path=timings["hymba"])
 
 
+def _device_profile(fn):
+    """Wall time, device busy time and idle share of one call of ``fn``,
+    and the device time of K1 and of the top kernels, from the raw device
+    events of ``torch.profiler`` with CUDA activity only: a survey run
+    makes some 500,000 device events, whose summary by ``key_averages``
+    takes minutes, and recording no host ops slows the host less (the
+    idle share is still an upper bound)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, events = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            events += 1
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+    if not events:
+        raise AssertionError("the profiled run recorded no device event")
+    busy_ms = sum(by_name.values()) / 1e6
+    # K1: both kernels of csrc/waterfill.cu are named waterfill_*
+    k1_ms = sum(v for k, v in by_name.items() if "waterfill_" in k) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:10]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1 - busy_ms / wall_ms,
+                device_events=events, k1_device_ms=k1_ms,
+                k1_share=k1_ms / busy_ms,
+                top_device=[(k[:70], v / 1e6) for k, v in top])
+
+
 def _profile(fn):
     """Wall time, device busy time and the top device kernels and host
     ops of one call of ``fn`` under ``torch.profiler`` (the profiler
@@ -994,9 +1033,6 @@ def _profile(fn):
     on_dev = [e for e in avg if e.device_type == DeviceType.CUDA]
     on_host = [e for e in avg if e.device_type == DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
-    # K1: both kernels of csrc/waterfill.cu are named waterfill_*
-    k1_ms = sum(e.self_device_time_total for e in on_dev
-                if "waterfill_" in e.key) / 1e3
     # K2: every kernel of csrc/flash_attention.cu is named flash_*
     k2_ms = sum(e.self_device_time_total for e in on_dev
                 if "flash_" in e.key) / 1e3
@@ -1010,7 +1046,6 @@ def _profile(fn):
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                 device_idle_share=1 - busy_ms / (wall * 1e3),
                 device_events=sum(e.count for e in on_dev),
-                k1_device_ms=k1_ms, k1_share=k1_ms / busy_ms,
                 k2_device_ms=k2_ms, k2_share=k2_ms / busy_ms,
                 k3_device_ms=k3_ms, k3_share=k3_ms / busy_ms,
                 top_device=[(e.key[:70], e.self_device_time_total / 1e3,

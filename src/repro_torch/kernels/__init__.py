@@ -3,8 +3,9 @@ version.  Sources live in ``csrc/``; ``_build`` compiles them with
 ``nvcc`` at first use.
 
 * ``waterfill`` — K1, batched max-min fair rates (replaces the TPU
-  kernel ``repro/kernels/waterfill.py::_waterfill_kernel``); call
-  ``repro_torch.kernels.waterfill.waterfill``.
+  kernel ``repro/kernels/waterfill.py::_waterfill_kernel``) in two
+  routes, one warp per row (``F <= 128``, ``W <= 32``) or one block per
+  row; call ``repro_torch.kernels.waterfill.waterfill``.
 * ``flash_attention`` — K2, GQA attention with causal and sliding-window
   masks (replaces ``repro/kernels/flash_attention.py::_flash_kernel``).
 * ``ssd`` — K3, the Mamba-2 SSD chunked scan as three chunk-parallel

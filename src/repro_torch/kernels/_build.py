@@ -106,3 +106,35 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _LIBS[name] = lib
         return lib
+
+
+def build_variants(name, variants, names):
+    """Compile variants of kernel ``name`` for the tune scripts: variant
+    ``v`` is the source with the text substitutions ``variants[v][1]``
+    (``((old, new), ...)``), written and built with ``NVCC_FLAGS`` into
+    ``build/repro_torch/variants/`` (all ``nvcc`` processes started
+    together); returns ``{v: ctypes.CDLL}``."""
+    src = sources()[name].read_text()
+    out_dir = BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    procs = {}
+    for v in names:
+        text = src
+        for old, new in variants[v][1]:
+            if old not in text:
+                raise ValueError(f"variant {v}: {old!r} not in source")
+            text = text.replace(old, new)
+        cu = out_dir / f"{name}_{v}.cu"
+        cu.write_text(text)
+        lib = out_dir / f"lib{name}_{v}.so"
+        procs[v] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for v, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {v}:\n{log}")
+        libs[v] = ctypes.CDLL(str(lib))
+    return libs

@@ -92,7 +92,6 @@ __device__ __forceinline__ float warp_min_redux(float v) {
   return __int_as_float(m >= 0 ? m : m ^ 0x7fffffff);
 }
 
-
 // One warp per row; NK = ceil(F / 32) flows per lane.
 template <int NK>
 __global__ void __launch_bounds__(32 * kWarpRows)

@@ -38,13 +38,13 @@ same calls by route, so a run shows which route served its path.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
 from . import ref
 from ._counter import LaunchCounter
+from ._launch import on_device, raw_stream
 
 HEAD_DIMS = (16, 32, 64, 256)
 ROUTES = ("tc", "split", "f32")
@@ -184,21 +184,6 @@ def _raise_on(err, what, q, k):
                            f"{tuple(k.shape)}, {q.dtype})")
 
 
-def _on(dev):
-    """The context that makes ``dev`` current for a launch (none when it
-    already is: decode calls this per layer, on the host's clock)."""
-    if dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
-def _stream(dev):
-    """The raw handle of ``dev``'s current stream (what
-    ``torch.cuda.current_stream(dev).cuda_stream`` gives, without making
-    a ``Stream`` object on every decode call)."""
-    return torch._C._cuda_getCurrentRawStream(dev.index)
-
-
 def _split_scratch(splits, B, Hq, D, device):
     """Scratch of the split route: one float32 buffer holding
     ``o [splits, B, Hq, D]``, then ``m`` and ``l [splits, B, Hq]``."""
@@ -239,8 +224,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     strides = _strides(q, k, v, out)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ctypes.addressof(strides))
-    with _on(q.device):
-        stream = _stream(q.device)
+    with on_device(q.device):
+        stream = raw_stream(q.device)
         if route == "split":
             lo, per, splits = split_plan(kv_len, window, B, Hkv, Hq)
             parts = _split_scratch(splits, B, Hq, D, q.device)
@@ -274,11 +259,11 @@ def split_partials(q, k, v, *, window=0, scale=None, kv_len=None):
     plan = split_plan(kv_len, int(window), B, Hkv, Hq)
     parts = _split_scratch(plan[2], B, Hq, D, q.device)
     strides = _strides(q, k, v, q)     # no output: o's slot unused
-    with _on(q.device):
+    with on_device(q.device):
         err = _launcher("flash_attention_split_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
             ctypes.addressof(strides), parts.data_ptr(), B, Hq, Hkv, Skv,
-            D, kv_len, *plan, float(scale), _stream(q.device))
+            D, kv_len, *plan, float(scale), raw_stream(q.device))
     _raise_on(err, "split", q, k)
     return plan, _split_views(parts, plan[2], B, Hq, D)
 
@@ -296,10 +281,10 @@ def combine_splits(o_parts, m_parts, l_parts):
                        l_parts.reshape(-1)]).float().contiguous()
     out = torch.empty(B, Hq, 1, D, dtype=torch.bfloat16,
                       device=o_parts.device)
-    with _on(out.device):
+    with on_device(out.device):
         err = _launcher("flash_attention_combine_launch")(
             parts.data_ptr(), out.data_ptr(), out.stride(0), out.stride(1),
-            splits, B, Hq, D, _stream(out.device))
+            splits, B, Hq, D, raw_stream(out.device))
     if err != 0:
         raise RuntimeError(f"flash_attention combine launch failed: CUDA "
                            f"error {err}")

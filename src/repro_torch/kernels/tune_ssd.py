@@ -69,30 +69,9 @@ KERNELS = ("ssd_chunk_state_launch", "ssd_state_pass_launch",
 
 
 def build(names):
-    """Write and compile each named variant; ``{name: {kernel: fn}}``."""
-    src = (_build.CSRC / "ssd.cu").read_text()
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _build.find_nvcc()
-    procs = {}
-    for name in names:
-        text = src
-        for old, new in VARIANTS[name][1]:
-            if old not in text:
-                raise ValueError(f"variant {name}: {old!r} not in source")
-            text = text.replace(old, new)
-        cu = out_dir / f"ssd_{name}.cu"
-        cu.write_text(text)
-        lib = out_dir / f"libssd_{name}.so"
-        procs[name] = (subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    """Compile each named variant; ``{name: {kernel: fn}}``."""
     fns = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        so = ctypes.CDLL(str(lib))
+    for name, so in _build.build_variants("ssd", VARIANTS, names).items():
         fns[name] = {}
         for k in KERNELS:
             fn = getattr(so, k)

@@ -43,14 +43,18 @@ VARIANTS = {
     # around it)
     "div_in_branch": (False, ((
         "    const float qu = __fdiv_rn(cu > 0 ? cap_u : 1.0f,\n"
-        "                               static_cast<float>(cu > 0 ? cu : 1));\n"
+        "                               static_cast<float>"
+        "(cu > 0 ? cu : 1));\n"
         "    const float qd = __fdiv_rn(cd > 0 ? cap_d : 1.0f,\n"
-        "                               static_cast<float>(cd > 0 ? cd : 1));\n"
+        "                               static_cast<float>"
+        "(cd > 0 ? cd : 1));\n"
         "    const float su = cu > 0 ? qu : CUDART_INF_F;\n"
         "    const float sd = cd > 0 ? qd : CUDART_INF_F;\n",
-        "    const float su = cu > 0 ? __fdiv_rn(cap_u, static_cast<float>(cu))\n"
+        "    const float su = cu > 0 ? __fdiv_rn(cap_u, "
+        "static_cast<float>(cu))\n"
         "                            : CUDART_INF_F;\n"
-        "    const float sd = cd > 0 ? __fdiv_rn(cap_d, static_cast<float>(cd))\n"
+        "    const float sd = cd > 0 ? __fdiv_rn(cap_d, "
+        "static_cast<float>(cd))\n"
         "                            : CUDART_INF_F;\n"),)),
     # live counts by popcounts of (resource mask & live mask) every round
     "recount": (False, ((
@@ -93,30 +97,11 @@ F = 4 * W
 
 
 def build(names):
-    """Write and compile each named variant; ``{name: launch fn}``."""
-    src = (_build.CSRC / "waterfill.cu").read_text()
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _build.find_nvcc()
-    procs = {}
-    for name in names:
-        text = src
-        for old, new in VARIANTS[name][1]:
-            if old not in text:
-                raise ValueError(f"variant {name}: {old!r} not in source")
-            text = text.replace(old, new)
-        cu = out_dir / f"waterfill_{name}.cu"
-        cu.write_text(text)
-        lib = out_dir / f"libwaterfill_{name}.so"
-        procs[name] = (subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    """Compile each named variant; ``{name: launch fn}``."""
     fns = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        fn = ctypes.CDLL(str(lib)).waterfill_launch
+    for name, so in _build.build_variants("waterfill", VARIANTS,
+                                          names).items():
+        fn = so.waterfill_launch
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int

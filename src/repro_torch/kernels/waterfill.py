@@ -30,13 +30,13 @@ show that the simulator's main path went through the kernel;
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
 from ..core.vectorized.waterfill import waterfill as waterfill_plain
 from ._counter import LaunchCounter
+from ._launch import on_device, raw_stream
 
 ROUTES = ("warp", "block")
 # the warp route's limits: 4 flows per lane, one upload and one download
@@ -111,14 +111,6 @@ def _check_cuda(src, dst, active, dev):
                         f"{active.dtype}")
 
 
-def _on(dev):
-    """The context that makes ``dev`` current for a launch (none when it
-    already is, as on the simulator's every event step)."""
-    if dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
 def waterfill(src, dst, active, caps_up, caps_down, max_rounds=None):
     """Max-min rates ``f32[R, F]`` for ``R`` flow sets of ``F`` flows over
     ``W`` workers.  ``src``/``dst``: int32 ``[R, F]`` worker ids in
@@ -165,12 +157,11 @@ def _waterfill(src, dst, active, caps_up, caps_down, max_rounds=None,
         return rates[0] if unbatched else rates
     ins = [x if x.is_contiguous() else x.contiguous()
            for x in (src, dst, active, caps_up, caps_down)]
-    with _on(dev):
+    with on_device(dev):
         err = _launcher()(*(x.data_ptr() for x in ins), rates.data_ptr(),
                           R, F, W,
                           2 * W if max_rounds is None else int(max_rounds),
-                          ROUTES.index(route),
-                          torch._C._cuda_getCurrentRawStream(dev.index))
+                          ROUTES.index(route), raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"waterfill {route} launch failed: CUDA error "
                            f"{err} (R={R}, F={F}, W={W})")
