@@ -32,16 +32,36 @@ printing one JSON line:
 4. ``golden``: the dynamic simulator against the reference package's
    recorded ``BENCH_PR7.json`` dynamic rows (blevel, maxmin, frontier
    on, 100 MiB/s, exact imode, msd 0).
-5. ``survey_mini``: the mini survey grid; every simulation must be ok.
-6. ``survey_full_width``: the full grid's T512 bucket on cluster 32x4
+5. ``survey_mini``: the mini survey grid without the agreement pass;
+   every simulation must be ok.
+6. ``survey_agreement``: the mini grid again through ``survey(...)``
+   with the agreement pass: 512 ok simulations, 16 agreement rows and
+   the ``__pergraph_path__`` row; each ``makespan_ratio`` (batched
+   makespan on the card over the reference event loop's deterministic
+   twin on the host) must equal the reference package's recorded value
+   (``MINI_AGREEMENT``) within rtol 1e-5.  Prints the survey's wall
+   time and events/s, the agreement pass's wall time, the geomean
+   ``speedup`` and the per-graph against bucketed cold seconds.
+7. ``survey_dataset``: the mini grid over ``--dataset wfcommons-mini``
+   with the agreement pass: the derived edges must be (128, 288), all
+   768 simulations ok, and the two bucket labels and 24 ratios equal
+   the reference's recorded ones (``DATASET_AGREEMENT``); prints K1's
+   launches by route.
+8. ``survey_full_width``: the full grid's T512 bucket on cluster 32x4
    (W = 32, 128 flow slots, 64 resources), all 24 points, blevel and
    greedy on maxmin, through the plain version and the kernel in turns
    (plain, kernel, kernel, plain) on the card; the results must agree
    and every launch of the main path must take the warp route.  One
    more blevel run through the kernel, under ``torch.profiler`` and
    outside the timed turns, gives the card's busy and idle share during
-   a survey and K1's share of the device time.
-7. ``kernel_flash_attention``: K2 against its plain version on the card
+   a survey and K1's share of the device time.  Then the agreement at
+   full width, at point 0 (32 MiB/s, exact, msd 0): each graph's twin
+   makespan must equal the reference twin's recorded value exactly,
+   and the kernel run's batched makespan the reference package's
+   recorded one within rtol 1e-5 (``FULL_WIDTH_AGREEMENT``; crossvx
+   under blevel, where the reference's frontier overflows, is printed
+   and not compared).
+9. ``kernel_flash_attention``: K2 against its plain version on the card
    (float32 and bfloat16) at Hymba's prefill shape (B 4, Hq 25, Hkv 5,
    Sq 1536, Skv 1568, kv_len 1536, window 1024 and 0, the KV cache's
    strided layout), its decode shape (Sq 1), gemma3's head dim 256, an
@@ -60,26 +80,26 @@ printing one JSON line:
    the host: there ``ms`` and ``library_ms`` are device times of calls
    replayed from a CUDA graph, and the eager times stand beside them
    (``eager_ms``, ``library_eager_ms``).
-8. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
-   ``ssd_state_pass``, ``ssd_chunk_scan``) each alone against its plain
-   piece (``ref.ssd_chunk_states``, ``ssd_pass_states``,
-   ``ssd_chunk_scan``), and the whole call against ``ssd_chunked`` and
-   the sequential final state, at Hymba's prefill shape (Bt 4, L 1536,
-   H 50, P 64, N 16), mamba2-130m's (H 24, N 128) and edge cases (one
-   chunk, chunk 32, P 16, N 128, a short last head group, a decay that
-   overflows above the diagonal, Q/P/N off a multiple of 4, the smoke
-   serve's L 8); fails above atol/rtol 1e-4.  Times the call and each
-   phase alone with CUDA events around eager calls.
-9. ``serve_hymba``: ``repro_torch.launch.serve`` at full width in
-   bfloat16 (batch 4, prompt 1536, gen 32) through the kernels, with the
-   launches of K2 (32 layers x 33 forward passes) and K3 (32); then the
-   same prompt in float32, prefill and 4 teacher-forced decode steps,
-   through the kernels and through the plain versions on the card:
-   logits within atol/rtol 1e-3 and equal greedy tokens.  K2's launches
-   are also counted by route (bf16: ``tc`` at prefill, ``split`` at
-   decode; float32: ``f32``), and the prefill profile gives K2's and
-   K3's device time and share.
-10. ``kernels``: each kernel with its launches on the main path (K1 and
+10. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
+    ``ssd_state_pass``, ``ssd_chunk_scan``) each alone against its plain
+    piece (``ref.ssd_chunk_states``, ``ssd_pass_states``,
+    ``ssd_chunk_scan``), and the whole call against ``ssd_chunked`` and
+    the sequential final state, at Hymba's prefill shape (Bt 4, L 1536,
+    H 50, P 64, N 16), mamba2-130m's (H 24, N 128) and edge cases (one
+    chunk, chunk 32, P 16, N 128, a short last head group, a decay that
+    overflows above the diagonal, Q/P/N off a multiple of 4, the smoke
+    serve's L 8); fails above atol/rtol 1e-4.  Times the call and each
+    phase alone with CUDA events around eager calls.
+11. ``serve_hymba``: ``repro_torch.launch.serve`` at full width in
+    bfloat16 (batch 4, prompt 1536, gen 32) through the kernels, with the
+    launches of K2 (32 layers x 33 forward passes) and K3 (32); then the
+    same prompt in float32, prefill and 4 teacher-forced decode steps,
+    through the kernels and through the plain versions on the card:
+    logits within atol/rtol 1e-3 and equal greedy tokens.  K2's launches
+    are also counted by route (bf16: ``tc`` at prefill, ``split`` at
+    decode; float32: ``f32``), and the prefill profile gives K2's and
+    K3's device time and share.
+12. ``kernels``: each kernel with its launches on the main path (K1 and
     K2 also by route); needs every kernel's check phase and the phase of
     its path in the same run.
 
@@ -103,8 +123,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 PHASES = ("env", "build", "kernel_waterfill", "golden", "survey_mini",
-          "survey_full_width", "kernel_flash_attention", "kernel_ssd",
-          "serve_hymba", "kernels")
+          "survey_agreement", "survey_dataset", "survey_full_width",
+          "kernel_flash_attention", "kernel_ssd", "serve_hymba", "kernels")
 
 # the recorded dynamic rows of BENCH_PR7.json (reference package, CPU)
 GOLDEN = {
@@ -116,6 +136,82 @@ GOLDEN = {
                           transferred=60276342784.0),
 }
 RTOL = 1e-5
+
+# the reference package's agreement rows (``benchmarks.survey.survey``,
+# JAX on a CPU): ``makespan_ratio`` of the first cluster (8x4) on maxmin
+# at the first point (32 MiB/s, exact imode, msd 0), by (graph,
+# scheduler).  fastcrossv's 0.9 % under blevel and 0.3 % under etf are
+# the reference's own gap (equal-priority downloads admitted in another
+# order by the twin), kept, not repaired.
+MINI_AGREEMENT = {
+    ("merge_triplets", "blevel"): 1.0000000482825693,
+    ("merge_triplets", "random"): 1.0000000661360724,
+    ("merge_triplets", "etf"): 1.0000000482825693,
+    ("merge_triplets", "greedy"): 0.9999999430160557,
+    ("fastcrossv", "blevel"): 1.0089501486911263,
+    ("fastcrossv", "random"): 1.000000095528131,
+    ("fastcrossv", "etf"): 0.9973245098278471,
+    ("fastcrossv", "greedy"): 1.0000001172150574,
+    ("sipht", "blevel"): 1.0000000967933749,
+    ("sipht", "random"): 1.000000022031648,
+    ("sipht", "etf"): 1.0000000967933749,
+    ("sipht", "greedy"): 0.9999999938955136,
+    ("montage-77-s0", "blevel"): 1.0000000160654554,
+    ("montage-77-s0", "random"): 1.000000098542022,
+    ("montage-77-s0", "etf"): 1.0000000160654554,
+    ("montage-77-s0", "greedy"): 1.0000000955980914,
+}
+
+# the same over ``dataset="wfcommons-mini"`` (reference package, JAX on a
+# CPU): derived edges, bucket labels and the 24 ratios
+DATASET_EDGES = (128, 288)
+DATASET_BUCKETS = {
+    "T128xO160xE224": ("montage-77-s0", "cybershake-104-s0",
+                       "epigenomics-84-s0"),
+    "T288xO448xE544": ("montage-220-s1", "cybershake-257-s1",
+                       "epigenomics-204-s1"),
+}
+DATASET_AGREEMENT = {
+    ("montage-77-s0", "blevel"): 1.0000000160654554,
+    ("cybershake-104-s0", "blevel"): 0.9999998962777956,
+    ("epigenomics-84-s0", "blevel"): 1.0000000329239538,
+    ("montage-220-s1", "blevel"): 1.0000001139469195,
+    ("cybershake-257-s1", "blevel"): 1.0000000263225237,
+    ("epigenomics-204-s1", "blevel"): 1.000000097037555,
+    ("montage-77-s0", "random"): 1.000000098542022,
+    ("cybershake-104-s0", "random"): 0.9999999449282616,
+    ("epigenomics-84-s0", "random"): 1.000000116388402,
+    ("montage-220-s1", "random"): 0.9999999568163955,
+    ("cybershake-257-s1", "random"): 0.9999999481465672,
+    ("epigenomics-204-s1", "random"): 0.9999999669237336,
+    ("montage-77-s0", "etf"): 1.0000000160654554,
+    ("cybershake-104-s0", "etf"): 0.9999999889216464,
+    ("epigenomics-84-s0", "etf"): 0.9999999823311638,
+    ("montage-220-s1", "etf"): 1.0000001139469195,
+    ("cybershake-257-s1", "etf"): 0.9999999724103024,
+    ("epigenomics-204-s1", "etf"): 1.000000018823098,
+    ("montage-77-s0", "greedy"): 1.0000000955980914,
+    ("cybershake-104-s0", "greedy"): 0.9999996082406636,
+    ("epigenomics-84-s0", "greedy"): 0.9999999097351874,
+    ("montage-220-s1", "greedy"): 1.0000000903638595,
+    ("cybershake-257-s1", "greedy"): 1.000000046415712,
+    ("epigenomics-204-s1", "greedy"): 0.9999999633295135,
+}
+
+# the T512 bucket on 32x4, maxmin, point 0 (32 MiB/s, exact, msd 0):
+# (reference package's batched makespan, JAX on a CPU; the reference
+# event loop's twin makespan) by (scheduler, graph).  The reference's
+# blevel run of crossvx overflows its spec-derived frontier (None).
+FULL_WIDTH_AGREEMENT = {
+    ("blevel", "fork1"): (129.60316467285156, 129.6031635621222),
+    ("blevel", "size_stairs"): (627.4307861328125, 627.4308240257641),
+    ("blevel", "crossvx"): (None, 2160.9993905861115),
+    ("blevel", "epigenomics-204-s0"): (456.88427734375, 456.88428325455067),
+    ("greedy", "fork1"): (129.2369842529297, 129.2369876105791),
+    ("greedy", "size_stairs"): (1507.3096923828125, 1507.3097556032444),
+    ("greedy", "crossvx"): (8054.41015625, 8054.410844914582),
+    ("greedy", "epigenomics-204-s0"): (1436.7587890625, 1436.7587918781019),
+}
 
 # peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # non-tensor float32 operations/s
@@ -540,8 +636,8 @@ def phase_survey_mini():
     from repro_torch.kernels import WATERFILL_LAUNCHES
     from repro_torch.survey import MINI_GRID, survey
     WATERFILL_LAUNCHES.reset()
-    rows, stats = survey(MINI_GRID, out_dir=os.path.join(
-        HERE, "results", "chip_smoke"), device="cuda")
+    rows, _, stats = survey(MINI_GRID, out_dir=os.path.join(
+        HERE, "results", "chip_smoke"), device="cuda", agreement=False)
     emit("survey_mini", rows=len(rows), sims=stats["sims"],
          groups=stats["groups"], events=stats["events"],
          wall_s=stats["wall_s"], events_per_s=stats["events_per_s"],
@@ -549,6 +645,105 @@ def phase_survey_mini():
     if not stats["all_ok"] or len(rows) != 512:
         raise AssertionError(f"mini survey failed: {len(rows)} rows, "
                              f"all_ok={stats['all_ok']}")
+
+
+def _agreement_survey(phase, dataset, want):
+    """The mini grid over ``dataset`` through ``survey(...)`` with the
+    agreement pass on the card, K1's launches counted from just before
+    to just after.  Returns ``(rows, stats, line, good)``: ``line`` the
+    phase's fields, ``good`` whether every simulation was ok, K1 ran and
+    every ratio equals ``want[(graph, scheduler)]`` within RTOL."""
+    from repro_torch.kernels import WATERFILL_LAUNCHES
+    from repro_torch.survey import MINI_GRID, geomean, survey
+    grid = dict(MINI_GRID, dataset=dataset)
+    WATERFILL_LAUNCHES.reset()
+    rows, agree, stats = survey(grid, out_dir=os.path.join(
+        HERE, "results", "chip_smoke", phase), device="cuda",
+        agreement=True)
+    launches = WATERFILL_LAUNCHES.count
+    routes = dict(WATERFILL_LAUNCHES.routes)
+    plain = [a for a in agree if a["graph_name"] != "__pergraph_path__"]
+    per = [a for a in agree if a["graph_name"] == "__pergraph_path__"]
+    ratios, worst = [], 0.0
+    for a in plain:
+        key = (a["graph_name"], a["scheduler_name"])
+        ref = want.get(key)
+        rel = (abs(a["makespan_ratio"] - ref) / abs(ref)
+               if ref is not None else None)
+        ratios.append(dict(graph=key[0], scheduler=key[1],
+                           cluster=a["cluster_name"], bucket=a["bucket"],
+                           ratio=a["makespan_ratio"], reference=ref,
+                           rel_err=rel))
+        worst = max(worst, rel if rel is not None else float("inf"))
+    line = dict(dataset=stats["dataset"], t_edges=stats["t_edges"],
+                buckets=stats["buckets"], rows=len(rows),
+                sims=stats["sims"], groups=stats["groups"],
+                events=stats["events"], all_ok=stats["all_ok"],
+                survey_wall_s=stats["wall_s"],
+                events_per_s=stats["events_per_s"],
+                agreement_wall_s=stats["agreement_s"],
+                speedup_geomean=(geomean([a["speedup"] for a in plain])
+                                 if plain else None),
+                bucket_cold_s=per[0]["bucket_cold_s"] if per else None,
+                pergraph_cold_s=per[0]["pergraph_cold_s"] if per else None,
+                agreement_rows=len(plain), pergraph_rows=len(per),
+                ratios=ratios, worst_rel_err=worst,
+                waterfill_launches=launches,
+                waterfill_launch_routes=routes, card=CARD)
+    good = (stats["all_ok"] and len(plain) == len(want) and len(per) == 1
+            and {(r["graph"], r["scheduler"]) for r in ratios} == set(want)
+            and worst <= RTOL and launches > 0)
+    return rows, stats, line, good
+
+
+def phase_survey_agreement():
+    rows, _, line, good = _agreement_survey("survey_agreement", "default",
+                                            MINI_AGREEMENT)
+    good = good and len(rows) == 512
+    emit("survey_agreement", **line, ok=good)
+    if not good:
+        raise AssertionError("survey_agreement: the mini survey's agreement "
+                             "rows disagree with the reference's")
+    return line["waterfill_launches"], line["waterfill_launch_routes"]
+
+
+def phase_survey_dataset():
+    rows, stats, line, good = _agreement_survey(
+        "survey_dataset", "wfcommons-mini", DATASET_AGREEMENT)
+    buckets = dict(b.split(":") for b in stats["buckets"])
+    good = (good and len(rows) == 768
+            and tuple(stats["t_edges"]) == DATASET_EDGES
+            and buckets == {k: ",".join(v)
+                            for k, v in DATASET_BUCKETS.items()})
+    emit("survey_dataset", **line, ok=good)
+    if not good:
+        raise AssertionError("survey_dataset: the wfcommons-mini survey "
+                             "disagrees with the reference's")
+    return line["waterfill_launches"], line["waterfill_launch_routes"]
+
+
+def _full_width_agreement(sched, res, points):
+    """Agreement rows of the T512 bucket on 32x4 at point 0: the kernel
+    run's batched makespan over the reference event loop's twin, each
+    held against the reference's recorded values."""
+    from repro_torch.core import parse_cluster
+    from repro_torch.survey import time_reference_twin
+    _, grp, _, _ = _full_width_group()
+    cores = parse_cluster("32x4")
+    out = []
+    for b, gname in enumerate(grp.names):
+        want_vec, want_twin = FULL_WIDTH_AGREEMENT[(sched, gname)]
+        reps, ref_us = time_reference_twin(gname, sched, len(cores), cores,
+                                           points[:1])
+        vec = float(res.makespan[0, b, 0])
+        twin = reps[0].makespan
+        out.append(dict(
+            graph=gname, batched=vec, twin=twin, ratio=vec / twin,
+            ref_us=ref_us, reference_batched=want_vec,
+            reference_twin=want_twin, twin_equal=twin == want_twin,
+            batched_rel_err=(abs(vec - want_vec) / abs(want_vec)
+                             if want_vec is not None else None)))
+    return out
 
 
 def phase_survey_full_width(schedulers=("blevel", "greedy")):
@@ -614,14 +809,23 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
             # profiler: how busy the card is during a survey, and K1's
             # share of its device time
             row["profile"] = _device_profile(lambda: runners["auto"](points))
+        # the agreement at full width, after the timed turns: the first
+        # kernel run's makespans at point 0 against the twins
+        agree = _full_width_agreement(sched, ra, points)
+        row["agreement"] = agree
+        agree_ok = all(a["twin_equal"] and (a["batched_rel_err"] is None
+                                            or a["batched_rel_err"] <= RTOL)
+                       for a in agree)
         out.append(row)
         if not (row["all_ok"] and same_counts and ms_rel <= RTOL
                 and x_rel <= RTOL and la > 0 and lt == 0
-                and routes["warp"] == la
+                and routes["warp"] == la and agree_ok
                 and all(n == 0 for n in row["plain_launches"])):
             emit("survey_full_width", rows=out, ok=False)
             raise AssertionError(f"full-width group disagrees: {row}")
+    ratios = [a["ratio"] for r in out for a in r["agreement"]]
     emit("survey_full_width", rows=out, ok=True, card=CARD,
+         agreement_worst_abs_ratio_minus_1=max(abs(x - 1) for x in ratios),
          waterfill_launches=main_path["count"],
          waterfill_launch_routes=main_path["routes"])
     return main_path
@@ -1217,11 +1421,18 @@ def main(argv=None):
     if "survey_mini" in phases:
         phase_survey_mini()
     launches = {}
-    k1_routes = None
+    k1 = []          # (launches, by route) of each of K1's path phases
+    if "survey_agreement" in phases:
+        k1.append(phase_survey_agreement())
+    if "survey_dataset" in phases:
+        k1.append(phase_survey_dataset())
     if "survey_full_width" in phases:
         main_path = phase_survey_full_width()
-        launches["waterfill"] = main_path["count"]
-        k1_routes = main_path["routes"]
+        k1.append((main_path["count"], main_path["routes"]))
+    k1_routes = None
+    if k1:
+        launches["waterfill"] = sum(n for n, _ in k1)
+        k1_routes = {r: sum(rt[r] for _, rt in k1) for r in k1[0][1]}
     fa = ss = None
     if "kernel_flash_attention" in phases:
         fa = phase_kernel_flash_attention()

@@ -2,8 +2,7 @@
 
 A copy of ``repro.core.graphs`` for the PyTorch port: the generators are
 framework-free and must give the same graphs, so the parity suites
-compare the two packages field by field.  WfFormat files (``wf:<path>``)
-are not resolved by the port yet."""
+compare the two packages field by field."""
 from __future__ import annotations
 
 import random
@@ -53,10 +52,8 @@ GRAPH_NAMES = list(GENERATORS)
 def make_graph(name: str, seed: int = 0) -> TaskGraph:
     """Build a graph by name: a registered generator, a seed-suffixed
     variant (``crossv@s3`` == ``crossv`` at seed+3 — how dataset
-    manifests pin per-instance seeds without colliding) or a recipe
-    instance (``montage-220-s1``).  WfFormat files (``wf:<path>``)
-    raise ``NotImplementedError`` until the port carries the WfFormat
-    reader (ROADMAP, still to port)."""
+    manifests pin per-instance seeds without colliding), a recipe
+    instance (``montage-220-s1``) or a WfFormat file (``wf:<path>``)."""
     gen = GENERATORS.get(name)
     if gen is None and "@s" in name:
         base, _, sfx = name.rpartition("@s")
@@ -69,7 +66,8 @@ def make_graph(name: str, seed: int = 0) -> TaskGraph:
     if g is None:
         raise KeyError(f"unknown graph {name!r}: not a registered "
                        f"generator, '<name>@s<seed>' variant, recipe "
-                       f"instance ('<family>-<n>-s<seed>')")
+                       f"instance ('<family>-<n>-s<seed>') or WfFormat "
+                       f"file ('wf:<path>')")
     return g
 
 

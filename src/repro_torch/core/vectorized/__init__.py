@@ -6,6 +6,7 @@ from .specs import (GraphSpec, BucketedGraphSpec, BucketGroup, encode_graph,
                     T_EDGES, PAD_MULTIPLE, FRONTIER_FLOOR, frontier_cap,
                     frontier_caps_for, frontier_caps_for_spec)
 from .sim import (make_bucket_dynamic_simulator, BucketedGridRunner,
+                  DynamicGridRunner, simulate_dynamic_grid,
                   DOWNLOAD_SLOTS, PAIR_SLOTS, SimResult)
 from .api import SimConfig, build, build_for_graph, make_grid_runner
 from .scheduling import (VEC_SCHEDULERS, make_bucket_scheduler,
@@ -20,6 +21,7 @@ __all__ = ["GraphSpec", "BucketedGraphSpec", "BucketGroup", "encode_graph",
            "T_EDGES", "PAD_MULTIPLE", "FRONTIER_FLOOR", "frontier_cap",
            "frontier_caps_for", "frontier_caps_for_spec",
            "make_bucket_dynamic_simulator", "BucketedGridRunner",
+           "DynamicGridRunner", "simulate_dynamic_grid",
            "DOWNLOAD_SLOTS", "PAIR_SLOTS", "SimResult",
            "SimConfig", "build", "build_for_graph", "make_grid_runner",
            "VEC_SCHEDULERS", "make_bucket_scheduler",

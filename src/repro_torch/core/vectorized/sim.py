@@ -725,6 +725,57 @@ def _points_arrays(points):
     return points, M, DD, BW, SD
 
 
+class DynamicGridRunner:
+    """Reusable dynamic-grid executor for one (graph, scheduler, cluster,
+    netmodel) — the counterpart of the reference's ``DynamicGridRunner``.
+
+    Built once on ``build(spec, dynamic=True, device=...)`` with the
+    graph's own spec, so its frontier caps are the spec-derived ones the
+    reference uses (it overflows where the reference does).  Each call
+    runs one row per grid point; the per-imode estimate encodings are
+    cached across calls.  Pass a prebuilt ``spec`` (``encode_graph``) to
+    share the encoding when many runners sweep the same graph; ``cores``
+    may be a scalar or a per-worker list.  For whole graph sets in one
+    call, see ``BucketedGridRunner``."""
+
+    def __init__(self, graph, scheduler, n_workers, cores,
+                 netmodel="maxmin", max_steps=None, spec=None, *,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.graph = graph
+        self.scheduler = scheduler
+        if spec is None:
+            spec = encode_graph(graph)
+        from .api import build
+        self.run = build(spec, n_workers=n_workers, cores=cores,
+                         scheduler=scheduler, netmodel=netmodel,
+                         dynamic=True, max_steps=max_steps,
+                         device=self.device)
+        self._est = {}
+
+    def _estimates(self, name):
+        if name not in self._est:
+            from ..imodes import encode_imode
+            self._est[name] = encode_imode(self.graph, name)
+        return self._est[name]
+
+    def __call__(self, points):
+        """``points``: iterable of dicts with keys ``msd``,
+        ``decision_delay``, ``imode``, ``bandwidth`` and ``seed``
+        (missing keys default to 0 / "exact" / 100 MiB/s / 0).  Returns
+        numpy ``(makespans f32[N], transferred f32[N])`` in point order;
+        raises if any grid point failed."""
+        points, M, DD, BW, SD = _points_arrays(points)
+        D = np.stack([self._estimates(p.get("imode", "exact"))[0]
+                      for p in points])
+        S = np.stack([self._estimates(p.get("imode", "exact"))[1]
+                      for p in points])
+        res = self.run(D, S, M, DD, BW, SD.astype(np.int64))
+        _check_ok(res.ok, f"simulate_dynamic_grid({self.graph.name!r}, "
+                          f"{self.scheduler!r})", res.overflow)
+        return res.makespan.cpu().numpy(), res.transferred.cpu().numpy()
+
+
 class BucketedGridRunner:
     """One batched simulator call for a whole *shape bucket* of graphs on
     a group of same-W clusters for one (scheduler, netmodel).
@@ -844,3 +895,11 @@ class BucketedGridRunner:
         _check_ok(out.ok, f"{type(self).__name__}({self.names!r}, "
                           f"{self.scheduler!r})", out.overflow)
         return out
+
+
+def simulate_dynamic_grid(graph, scheduler, n_workers, cores, points,
+                          netmodel="maxmin", max_steps=None, *,
+                          device="cuda"):
+    """One-shot convenience wrapper around ``DynamicGridRunner``."""
+    return DynamicGridRunner(graph, scheduler, n_workers, cores, netmodel,
+                             max_steps, device=device)(points)

@@ -36,6 +36,16 @@ from repro_torch.launch.serve import serve
 out = serve(smoke_config("hymba-1.5b"), batch=1, prompt_len=8, gen=2,
             device="cpu")
 assert out["tokens"].shape == (1, 2)
+from repro_torch.core import Simulator, make_scheduler, resolve_workers
+from repro_torch.survey import MINI_GRID, dataset_axis, time_reference_twin
+rep = Simulator(g, resolve_workers([2, 2]), make_scheduler("ws")).run()
+assert rep.makespan > 0
+reps, _ = time_reference_twin("sipht", "greedy", 2, [4, 4], [{}])
+assert reps[0].makespan > 0
+ds, items, edges = dataset_axis(dict(MINI_GRID, dataset="wfcommons-mini"))
+assert edges == (128, 288) and len(items) == 6
+from repro_torch.core.graphs import make_graph
+assert make_graph("wf:tests/data/wfformat_golden.json").task_count == 7
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro.")
@@ -103,6 +113,16 @@ def test_survey_cli_raises_without_a_card():
     out = subprocess.run([sys.executable, "-m", "repro_torch.survey",
                           "--mini"], cwd=str(ROOT), env=_env(),
                          capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "survey_torch[" not in out.stdout
+
+
+def test_survey_dataset_cli_raises_without_a_card():
+    _needs_no_card()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.survey",
+                          "--mini", "--dataset", "wfcommons-mini"],
+                         cwd=str(ROOT), env=_env(), capture_output=True,
+                         text=True, timeout=300)
     assert out.returncode != 0
     assert "CUDA" in out.stderr and "survey_torch[" not in out.stdout
 

@@ -114,7 +114,10 @@ def test_cluster_helpers_match_reference():
 
 
 def test_wfformat_names_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_graph("wf:some/file.json")
-    with pytest.raises(KeyError, match="unknown graph"):
-        make_graph("no-such-graph")
+    # WfFormat names are ported now: a missing file fails as in the
+    # reference, and an unknown name is still a KeyError
+    for mk in (make_graph, j_make_graph):
+        with pytest.raises(FileNotFoundError, match="some/file.json"):
+            mk("wf:some/file.json")
+        with pytest.raises(KeyError, match="unknown graph"):
+            mk("no-such-graph")
