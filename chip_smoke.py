@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py                 # every phase, one card
 
-Drives the port's two main paths through the entry points a user calls,
-and checks them: the paper survey's batched dynamic simulator with the
+Drives the port's main paths through the entry points a user calls,
+and checks them: the paper survey's batched dynamic simulator, the
+static simulator and the ``genetic-vec`` scheduler on it, all with the
 max-min waterfill kernel (K1), and serving Hymba-1.5B with the flash
 attention (K2) and Mamba-2 SSD scan (K3) kernels.  Phases, each
 printing one JSON line:
@@ -61,15 +62,41 @@ printing one JSON line:
    recorded one within rtol 1e-5 (``FULL_WIDTH_AGREEMENT``; crossvx
    under blevel, where the reference's frontier overflows, is printed
    and not compared).
-9. ``kernel_flash_attention``: K2 against its plain version on the card
+9. ``static_golden``: the static simulator against the reference's
+   recorded ``BENCH_PR7.json`` static rows (merge_triplets at 8x4,
+   t2048_layered at 16x4): each graph scheduled by the port's
+   ``build(..., scheduler="blevel")`` from exact estimates, padded to
+   its bucket and simulated by ``build(...)`` with no scheduler through
+   K1; events, steps and makespan exactly, ``transferred`` within rtol
+   1e-5.
+10. ``static_full_width``: the T512 bucket on 32x4 (W 32, 128 flow
+    slots) through the static simulator: each graph x the five static
+    schedules (placed on the card) x 100 and 512 MiB/s, 40 rows in one
+    call with full-coverage frontier caps, through the plain waterfill
+    and K1 in turns (plain, kernel, kernel, plain): every run bitwise
+    equal, and ``ok``, events, steps and makespan exactly the values
+    the reference package recorded on a CPU (``STATIC_FULL_WIDTH``,
+    ``tools/record_static_reference.py``); events/s of both, and one
+    more kernel run under the profiler.
+11. ``genetic_vec``: the reference event loop on fastcrossv at 32x4 with
+    the port's ``make_scheduler("genetic-vec", seed=0)`` at its defaults
+    (population 32, 16 generations: 17 batched calls of 32 rows through
+    K1): makespan and every task's worker equal to the reference's
+    recorded run (``GENETIC_VEC``); then 2 generations on the plain
+    waterfill and on K1, both equal to the reference's 2-generation
+    run; wall time per generation.
+12. ``kernel_flash_attention``: K2 against its plain version on the card
    (float32 and bfloat16) at Hymba's prefill shape (B 4, Hq 25, Hkv 5,
    Sq 1536, Skv 1568, kv_len 1536, window 1024 and 0, the KV cache's
    strided layout), its decode shape (Sq 1), gemma3's head dim 256, an
-   MQA case (one kv head) and a non-causal case, then bfloat16 cases at
+   MQA case (one kv head), a non-causal case, head dims 128
+   (qwen3-32b-like: Hq 64, Hkv 8) and 160 (stablelm-12b-like: Hq 32,
+   Hkv 8) at prefill (Sq 512) and decode, then bfloat16 cases at
    the edges of the tensor-core and split routes (``Sq``, ``Skv`` and
    ``kv_len`` off the tile, a window ending inside a tile, decode at
    ``kv_len`` 1, with one split and with several, more than 8 query
-   heads per kv head); fails above atol/rtol 1e-5 (float32) or atol
+   heads per kv head, D 160 and D 128 off the tile and windowed); fails
+   above atol/rtol 1e-5 (float32) or atol
    4e-3 / rtol 8e-3 (bfloat16).  The split route's two kernels are also
    held alone against ``ref.attention_partials`` (atol/rtol 1e-4) and
    ``ref.combine_splits`` (the bfloat16 limits).  Times the kernel, the
@@ -79,8 +106,9 @@ printing one JSON line:
    time on the card than on the host's clock, so an eager loop times
    the host: there ``ms`` and ``library_ms`` are device times of calls
    replayed from a CUDA graph, and the eager times stand beside them
-   (``eager_ms``, ``library_eager_ms``).
-10. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
+   (``eager_ms``, ``library_eager_ms``).  Hymba's four cases and the
+   four D 128/160 cases are timed.
+13. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
     ``ssd_state_pass``, ``ssd_chunk_scan``) each alone against its plain
     piece (``ref.ssd_chunk_states``, ``ssd_pass_states``,
     ``ssd_chunk_scan``), and the whole call against ``ssd_chunked`` and
@@ -90,7 +118,7 @@ printing one JSON line:
     overflows above the diagonal, Q/P/N off a multiple of 4, the smoke
     serve's L 8); fails above atol/rtol 1e-4.  Times the call and each
     phase alone with CUDA events around eager calls.
-11. ``serve_hymba``: ``repro_torch.launch.serve`` at full width in
+14. ``serve_hymba``: ``repro_torch.launch.serve`` at full width in
     bfloat16 (batch 4, prompt 1536, gen 32) through the kernels, with the
     launches of K2 (32 layers x 33 forward passes) and K3 (32); then the
     same prompt in float32, prefill and 4 teacher-forced decode steps,
@@ -99,9 +127,9 @@ printing one JSON line:
     are also counted by route (bf16: ``tc`` at prefill, ``split`` at
     decode; float32: ``f32``), and the prefill profile gives K2's and
     K3's device time and share.
-12. ``kernels``: each kernel with its launches on the main path (K1 and
-    K2 also by route); needs every kernel's check phase and the phase of
-    its path in the same run.
+15. ``kernels``: each kernel with its launches on the main paths (K1's
+    summed over its path phases; K1 and K2 also by route); needs every
+    kernel's check phase and the phase of its path in the same run.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}``.
@@ -124,6 +152,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 PHASES = ("env", "build", "kernel_waterfill", "golden", "survey_mini",
           "survey_agreement", "survey_dataset", "survey_full_width",
+          "static_golden", "static_full_width", "genetic_vec",
           "kernel_flash_attention", "kernel_ssd", "serve_hymba", "kernels")
 
 # the recorded dynamic rows of BENCH_PR7.json (reference package, CPU)
@@ -136,6 +165,123 @@ GOLDEN = {
                           transferred=60276342784.0),
 }
 RTOL = 1e-5
+
+# the static simulator's rows of BENCH_PR7.json (frontier on: blevel
+# from the exact estimates, padded to the bucket, the shape's caps) record
+# the same values as its dynamic rows
+STATIC_GOLDEN = GOLDEN
+
+# the static_full_width cell's 40 rows, recorded from the reference
+# package (JAX on a CPU) by ``tools/record_static_reference.py``: the
+# T512 bucket on 32x4, each graph placed by the reference's bucket
+# scheduler from exact estimates (seed 0) and simulated with
+# full-coverage frontier caps (E, T); (ok, n_events, n_steps, makespan,
+# transferred) by (scheduler, MiB/s, graph)
+STATIC_SCHEDULERS = ("blevel", "tlevel", "mcp", "etf", "random")
+STATIC_BANDWIDTHS_MIB = (100, 512)
+STATIC_FULL_WIDTH = {
+    ('blevel', 100, 'fork1'):
+        (True, 457, 410, 118.05352783203125, 16462643200.0),
+    ('blevel', 100, 'size_stairs'):
+        (True, 377, 346, 262.2301330566406, 18371051520.0),
+    ('blevel', 100, 'crossvx'):
+        (True, 681, 577, 1343.089599609375, 41694330880.0),
+    ('blevel', 100, 'epigenomics-204-s0'):
+        (True, 433, 433, 432.3298645019531, 4002148608.0),
+    ('blevel', 512, 'fork1'):
+        (True, 456, 397, 118.41110229492188, 16357785600.0),
+    ('blevel', 512, 'size_stairs'):
+        (True, 377, 344, 143.61370849609375, 18371051520.0),
+    ('blevel', 512, 'crossvx'):
+        (True, 677, 460, 1023.5889282226562, 41871904768.0),
+    ('blevel', 512, 'epigenomics-204-s0'):
+        (True, 434, 434, 441.82513427734375, 3951829248.0),
+    ('tlevel', 100, 'fork1'):
+        (True, 485, 428, 128.82240295410156, 19398656000.0),
+    ('tlevel', 100, 'size_stairs'):
+        (True, 375, 351, 267.0175476074219, 18447597568.0),
+    ('tlevel', 100, 'crossvx'):
+        (True, 467, 312, 1223.587890625, 22185697280.0),
+    ('tlevel', 100, 'epigenomics-204-s0'):
+        (True, 338, 338, 446.063232421875, 2480946944.0),
+    ('tlevel', 512, 'fork1'):
+        (True, 468, 402, 128.69496154785156, 17616076800.0),
+    ('tlevel', 512, 'size_stairs'):
+        (True, 376, 349, 144.22218322753906, 18631098368.0),
+    ('tlevel', 512, 'crossvx'):
+        (True, 467, 312, 1054.6788330078125, 22185697280.0),
+    ('tlevel', 512, 'epigenomics-204-s0'):
+        (True, 338, 338, 444.034423828125, 2480946944.0),
+    ('mcp', 100, 'fork1'):
+        (True, 457, 410, 118.05352783203125, 16462643200.0),
+    ('mcp', 100, 'size_stairs'):
+        (True, 377, 346, 262.2301330566406, 18371051520.0),
+    ('mcp', 100, 'crossvx'):
+        (True, 681, 577, 1343.089599609375, 41694330880.0),
+    ('mcp', 100, 'epigenomics-204-s0'):
+        (True, 433, 433, 432.3298645019531, 4002148608.0),
+    ('mcp', 512, 'fork1'):
+        (True, 456, 397, 118.41110229492188, 16357785600.0),
+    ('mcp', 512, 'size_stairs'):
+        (True, 377, 344, 143.61370849609375, 18371051520.0),
+    ('mcp', 512, 'crossvx'):
+        (True, 677, 460, 1023.5889282226562, 41871904768.0),
+    ('mcp', 512, 'epigenomics-204-s0'):
+        (True, 434, 434, 441.82513427734375, 3951829248.0),
+    ('etf', 100, 'fork1'):
+        (True, 416, 399, 116.24382019042969, 12163481600.0),
+    ('etf', 100, 'size_stairs'):
+        (True, 377, 351, 262.8668212890625, 18371051520.0),
+    ('etf', 100, 'crossvx'):
+        (True, 492, 377, 1214.4302978515625, 22188308480.0),
+    ('etf', 100, 'epigenomics-204-s0'):
+        (True, 333, 333, 445.1790466308594, 2440725248.0),
+    ('etf', 512, 'fork1'):
+        (True, 421, 400, 115.56745910644531, 12687769600.0),
+    ('etf', 512, 'size_stairs'):
+        (True, 377, 353, 139.98721313476562, 18371051520.0),
+    ('etf', 512, 'crossvx'):
+        (True, 492, 377, 1051.1544189453125, 22188310528.0),
+    ('etf', 512, 'epigenomics-204-s0'):
+        (True, 333, 333, 442.9508056640625, 2437606144.0),
+    ('random', 100, 'fork1'):
+        (True, 490, 415, 246.23240661621094, 19922944000.0),
+    ('random', 100, 'size_stairs'):
+        (True, 379, 350, 291.5271301269531, 18683527168.0),
+    ('random', 100, 'crossvx'):
+        (True, 805, 544, 1768.6761474609375, 51647746048.0),
+    ('random', 100, 'epigenomics-204-s0'):
+        (True, 492, 492, 764.00390625, 5200154624.0),
+    ('random', 512, 'fork1'):
+        (True, 490, 400, 246.23240661621094, 19922944000.0),
+    ('random', 512, 'size_stairs'):
+        (True, 379, 350, 179.90623474121094, 18683527168.0),
+    ('random', 512, 'crossvx'):
+        (True, 805, 545, 1600.251953125, 51647750144.0),
+    ('random', 512, 'epigenomics-204-s0'):
+        (True, 492, 492, 758.7047119140625, 5200154112.0),
+}
+
+# the reference event loop on fastcrossv at 32x4 (maxmin, 100 MiB/s) with
+# the reference's genetic-vec (seed 0, population 32) at 16 (its
+# default) and 2 generations, recorded by the same script (JAX on a
+# CPU): (makespan, each task's worker) by generations
+GENETIC_VEC = {
+    16: (158.1911558649453, [
+         31, 31, 0, 15, 30, 31, 10, 28, 31, 30, 11, 25, 30, 14,
+         31, 28, 9, 15, 7, 28, 9, 20, 15, 25, 23, 0, 6, 25, 24, 3,
+         29, 11, 13, 14, 12, 23, 14, 1, 6, 0, 20, 12, 26, 14, 20,
+         26, 26, 7, 2, 9, 2, 23, 24, 9, 1, 4, 1, 0, 25, 30, 4, 20,
+         22, 0, 18, 10, 13, 28, 7, 2, 31, 20, 4, 4, 31, 4, 14, 24,
+         14, 13, 2, 22, 26, 18, 25, 28, 22, 16]),
+    2: (187.99836037741963, [
+         31, 31, 0, 23, 28, 22, 14, 5, 4, 31, 12, 9, 17, 22, 1,
+         14, 25, 15, 7, 7, 9, 20, 15, 25, 27, 2, 6, 25, 24, 19,
+         29, 6, 10, 14, 12, 23, 14, 23, 6, 31, 30, 4, 7, 7, 20, 1,
+         26, 20, 30, 9, 2, 23, 9, 9, 1, 4, 1, 31, 25, 30, 23, 20,
+         22, 20, 18, 10, 13, 28, 7, 14, 10, 18, 4, 4, 16, 0, 14,
+         21, 28, 27, 2, 15, 26, 18, 17, 28, 22, 16]),
+}
 
 # the reference package's agreement rows (``benchmarks.survey.survey``,
 # JAX on a CPU): ``makespan_ratio`` of the first cluster (8x4) on maxmin
@@ -831,6 +977,240 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
     return main_path
 
 
+# ------------------------------------------- the static simulator, genetic-vec
+def _static_golden_row(name, graph):
+    """One ``BENCH_PR7.json`` static row: blevel from the exact
+    estimates by ``build(..., scheduler="blevel")``, padded to the
+    bucket, then the static simulator (``build`` with no scheduler, the
+    shape's frontier caps) through K1."""
+    import numpy as np
+    import torch
+    from repro_torch.core import MiB, parse_cluster
+    from repro_torch.core.imodes import encode_imode
+    from repro_torch.core.vectorized import build
+    from repro_torch.core.vectorized.specs import (encode_graph, pad_spec,
+                                                   pad_to, round_up,
+                                                   t_bucket)
+    want = STATIC_GOLDEN[name]
+    spec = encode_graph(graph)
+    shape = (t_bucket(spec.T), round_up(spec.O), round_up(spec.E))
+    cores = parse_cluster(want["cluster"])
+    bw = np.float32(100 * MiB)
+    d, s = encode_imode(graph, "exact")
+    aw, prio = build(spec, n_workers=len(cores), cores=cores,
+                     scheduler="blevel", device="cuda")(d, s, bw)
+    run = build(None, n_workers=len(cores), cores=cores, device="cuda")
+    args = (pad_spec(spec, shape), pad_to(aw.cpu().numpy(), shape[0], 0),
+            pad_to(prio.cpu().numpy(), shape[0], 0.0), None, None, bw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(makespan=float(res.makespan), transferred=float(
+        res.transferred), n_events=int(res.n_events),
+        n_steps=int(res.n_steps), ok=bool(res.ok))
+    good = (got["ok"] and got["n_events"] == want["n_events"]
+            and got["n_steps"] == want["n_steps"]
+            and got["makespan"] == want["makespan"]
+            and abs(got["transferred"] - want["transferred"])
+            <= RTOL * abs(want["transferred"]))
+    return dict(graph=name, shape=list(shape), got=got, want=want,
+                match=good, wall_s=wall,
+                events_per_s=got["n_events"] / wall), good
+
+
+def phase_static_golden():
+    from repro_torch.core.graphs import make_graph
+    from repro_torch.kernels import WATERFILL_LAUNCHES
+    rows, launches = [], 0
+    routes = dict.fromkeys(WATERFILL_LAUNCHES.routes, 0)
+    for name, graph in (("merge_triplets", make_graph("merge_triplets",
+                                                      seed=0)),
+                        ("t2048_layered", t2048_graph())):
+        # the path's own count: zeroed just before, read just after
+        WATERFILL_LAUNCHES.reset()
+        row, good = _static_golden_row(name, graph)
+        row["waterfill_launches"] = WATERFILL_LAUNCHES.count
+        good = good and WATERFILL_LAUNCHES.count > 0
+        launches += WATERFILL_LAUNCHES.count
+        for k, v in WATERFILL_LAUNCHES.routes.items():
+            routes[k] += v
+        rows.append(row)
+        if not good:
+            emit("static_golden", rows=rows, ok=False)
+            raise AssertionError(f"static golden row {name} does not "
+                                 f"match: {row}")
+    emit("static_golden", rows=rows, ok=True, card=CARD,
+         waterfill_launches=launches, waterfill_launch_routes=routes)
+    return launches, routes
+
+
+def _static_full_width_rows():
+    """The 40 rows of the static_full_width cell: each graph of the T512
+    bucket x the five static schedules x 100 and 512 MiB/s, scheduled by
+    the port's bucket schedulers on the card from exact estimates
+    (seed 0), as ``(keys, spec rows, assignments, priorities,
+    bandwidths)``."""
+    import numpy as np
+    from repro_torch.core import MiB
+    from repro_torch.core.imodes import encode_imode
+    from repro_torch.core.vectorized import build
+    from repro_torch.core.vectorized.specs import pad_to
+    encoded, grp, cores, _ = _full_width_group()
+    T, O, _E = grp.shape
+    est = [encode_imode(encoded[n][0], "exact") for n in grp.names]
+    D = np.stack([pad_to(d, T) for d, _ in est])
+    S = np.stack([pad_to(s, O) for _, s in est])
+    keys, rows_b, rows_a, rows_p, rows_bw = [], [], [], [], []
+    for sched in STATIC_SCHEDULERS:
+        fn = build(None, n_workers=32, cores=cores[0], scheduler=sched,
+                   device="cuda")
+        for mib in STATIC_BANDWIDTHS_MIB:
+            bw = np.full(len(grp.names), mib * MiB, np.float32)
+            aw, prio = fn(grp.batch, D, S, bw, 0)
+            for b, name in enumerate(grp.names):
+                keys.append((sched, mib, name))
+                rows_b.append(b)
+                rows_a.append(aw[b].cpu().numpy())
+                rows_p.append(prio[b].cpu().numpy())
+                rows_bw.append(mib * MiB)
+    spec = grp.batch.map(lambda x: np.asarray(x)[rows_b])
+    return (keys, spec, np.stack(rows_a), np.stack(rows_p),
+            np.asarray(rows_bw, np.float32))
+
+
+def phase_static_full_width():
+    import numpy as np
+    import torch
+    from repro_torch.core.vectorized import build
+    from repro_torch.kernels import WATERFILL_LAUNCHES
+    _, grp, cores, _ = _full_width_group()
+    T, _O, E = grp.shape
+    t0 = time.perf_counter()
+    keys, spec, A, P, BW = _static_full_width_rows()
+    schedule_s = time.perf_counter() - t0
+    runs = {impl: build(None, n_workers=32, cores=cores[0],
+                        frontier_caps=(E, T), device="cuda",
+                        waterfill_impl=impl) for impl in ("auto", "torch")}
+    res = {"auto": [], "torch": []}
+    # in turns (plain, kernel, kernel, plain) on one card
+    for impl in ("torch", "auto", "auto", "torch"):
+        WATERFILL_LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = runs[impl](spec, A, P, None, None, BW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = {f: getattr(r, f).cpu().numpy() for f in r._fields}
+        res[impl].append((r, wall, WATERFILL_LAUNCHES.count,
+                          dict(WATERFILL_LAUNCHES.routes)))
+    ra, la, routes = res["auto"][0][0], res["auto"][0][2], \
+        res["auto"][0][3]
+    rt = res["torch"][0][0]
+    every = [x[0] for impl in res for x in res[impl]]
+    bitwise = all(np.array_equal(x[f], rt[f], equal_nan=True)
+                  for x in every for f in rt)
+    mismatches = []
+    for i, key in enumerate(keys):
+        ok, n_ev, n_st, ms, xfer = STATIC_FULL_WIDTH[key]
+        good = (bool(ra["ok"][i]) == ok and int(ra["n_events"][i]) == n_ev
+                and int(ra["n_steps"][i]) == n_st
+                and float(ra["makespan"][i]) == ms
+                and abs(float(ra["transferred"][i]) - xfer)
+                <= RTOL * abs(xfer))
+        if not good:
+            mismatches.append(dict(
+                key=list(key), want=[ok, n_ev, n_st, ms, xfer],
+                got=[bool(ra["ok"][i]), int(ra["n_events"][i]),
+                     int(ra["n_steps"][i]), float(ra["makespan"][i]),
+                     float(ra["transferred"][i])]))
+    ev = int(ra["n_events"].sum())
+    k_walls = [x[1] for x in res["auto"]]
+    p_walls = [x[1] for x in res["torch"]]
+    line = dict(bucket=grp.label, graphs=list(grp.names), cluster="32x4",
+                schedulers=list(STATIC_SCHEDULERS),
+                bandwidths_mib=list(STATIC_BANDWIDTHS_MIB), rows=len(keys),
+                all_ok=bool(ra["ok"].all()), events=ev,
+                max_steps=int(ra["n_steps"].max()), schedule_s=schedule_s,
+                order="plain,kernel,kernel,plain", kernel_wall_s=k_walls,
+                kernel_events_per_s=[ev / w for w in k_walls],
+                plain_wall_s=p_walls,
+                plain_events_per_s=[ev / w for w in p_walls],
+                kernel_launches=[x[2] for x in res["auto"]],
+                kernel_launch_routes=[x[3] for x in res["auto"]],
+                plain_launches=[x[2] for x in res["torch"]],
+                kernel_plain_bitwise=bitwise,
+                reference_mismatches=mismatches, card=CARD)
+    # one more kernel run, outside the timed turns, under the profiler:
+    # the card's busy and idle share and K1's share
+    line["profile"] = _device_profile(
+        lambda: runs["auto"](spec, A, P, None, None, BW))
+    good = (line["all_ok"] and bitwise and not mismatches
+            and len(keys) == len(STATIC_FULL_WIDTH)
+            and all(n == 0 for n in line["plain_launches"])
+            and la > 0 and routes["warp"] == la)
+    emit("static_full_width", **line, ok=good)
+    if not good:
+        raise AssertionError("static_full_width: the rows disagree with the "
+                             "reference's or between kernel and plain")
+    return la, routes
+
+
+def _genetic_run(impl, **kw):
+    """The reference event loop on fastcrossv at 32x4 with the port's
+    ``genetic-vec`` (seed 0): (makespan, each task's worker, wall s)."""
+    import torch
+    from repro_torch.core import (Simulator, make_scheduler, parse_cluster,
+                                  resolve_workers)
+    from repro_torch.core.graphs import make_graph
+    g = make_graph("fastcrossv", seed=0)
+    sched = make_scheduler("genetic-vec", seed=0, device="cuda",
+                           waterfill_impl=impl, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = Simulator(g, resolve_workers(parse_cluster("32x4")), sched).run()
+    torch.cuda.synchronize()
+    return (rep.makespan, [rep.task_records[t].worker for t in g.tasks],
+            time.perf_counter() - t0, sched)
+
+
+def phase_genetic_vec(short_generations=2):
+    from repro_torch.kernels import WATERFILL_LAUNCHES
+    WATERFILL_LAUNCHES.reset()
+    ms, workers, wall, sched = _genetic_run("auto")
+    launches = WATERFILL_LAUNCHES.count
+    routes = dict(WATERFILL_LAUNCHES.routes)
+    gens = sched.generations
+    want_ms, want_workers = GENETIC_VEC[gens]
+    short = {}
+    for impl in ("torch", "auto"):
+        s_ms, s_workers, s_wall, _ = _genetic_run(
+            impl, generations=short_generations)
+        short[impl] = dict(makespan=s_ms, wall_s=s_wall,
+                           reference_equal=(
+                               (s_ms, s_workers)
+                               == GENETIC_VEC[short_generations]))
+    line = dict(graph="fastcrossv", cluster="32x4",
+                population=sched.population, generations=gens,
+                batched_calls=gens + 1, makespan=ms,
+                reference_makespan=want_ms,
+                schedule_equal=workers == want_workers,
+                wall_s=wall, wall_s_per_generation=wall / gens,
+                wall_s_per_fitness_call=wall / (gens + 1),
+                short_generations=short_generations, short_runs=short,
+                waterfill_launches=launches,
+                waterfill_launch_routes=routes, card=CARD)
+    good = (ms == want_ms and workers == want_workers
+            and all(r["reference_equal"] for r in short.values())
+            and launches > 0)
+    emit("genetic_vec", **line, ok=good)
+    if not good:
+        raise AssertionError("genetic_vec: the port's schedule differs from "
+                             "the reference's")
+    return launches, routes
+
+
 # ------------------------------------------------------- LM kernels, serve
 def _bound(nbytes, ops, ops_per_s):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
@@ -859,8 +1239,17 @@ ATTN_CASES = (
     ("gemma3_d256", 2, 4, 1, 512, 512, 256, 512, 256, True, False),
     ("mqa_d32", 2, 8, 1, 300, 300, 32, 300, 0, True, False),
     ("noncausal_d16", 2, 4, 2, 100, 100, 16, 100, 0, False, False),
+    # head dims 128 (qwen3-32b-like: 64 query heads on 8 kv heads) and
+    # 160 (stablelm-12b-like: 32 on 8), prefill and decode
+    ("qwen3_d128_prefill", 2, 64, 8, 512, 512, 128, 512, 0, True, True),
+    ("qwen3_d128_decode", 2, 64, 8, 1, 520, 128, 513, 0, True, True),
+    ("stablelm_d160_prefill", 2, 32, 8, 512, 512, 160, 512, 0, True, True),
+    ("stablelm_d160_decode", 2, 32, 8, 1, 520, 160, 513, 0, True, True),
 )
 ATTN_PATH = ("prefill_w1024", "prefill_w0", "decode_w1024", "decode_w0")
+# timed beside the path's cases: the head dims 128 and 160
+ATTN_TIMED = ATTN_PATH + ("qwen3_d128_prefill", "qwen3_d128_decode",
+                          "stablelm_d160_prefill", "stablelm_d160_decode")
 # bfloat16 only: the edges of the tensor-core (Sq > 1) and split (Sq 1)
 # routes
 ATTN_EDGE_CASES = (
@@ -875,6 +1264,12 @@ ATTN_EDGE_CASES = (
     ("edge_decode_w100", 4, 25, 5, 1, 1568, 64, 1000, 100, True, True),
     ("edge_decode_d256_g12", 1, 12, 1, 1, 300, 256, 250, 0, True, True),
     ("edge_decode_d16", 2, 6, 2, 1, 300, 16, 299, 0, True, False),
+    # D 160's swizzled row tail and its whole-warp decode lanes at the
+    # edges; D 128 with a window ending inside a tile
+    ("edge_d160_sq100_w40", 1, 4, 2, 100, 130, 160, 120, 40, True, True),
+    ("edge_decode_d160_g12", 1, 12, 1, 1, 300, 160, 250, 0, True, True),
+    ("edge_d128_sq300_w70", 1, 8, 2, 300, 320, 128, 310, 70, True, False),
+    ("edge_decode_d128_w100", 2, 16, 2, 1, 700, 128, 650, 100, True, True),
 )
 
 
@@ -1008,7 +1403,7 @@ def phase_kernel_flash_attention(seed=0):
                 raise AssertionError(f"split route kernels disagree with "
                                      f"their plain versions: "
                                      f"{split_checks[-1]}")
-        if name not in ATTN_PATH:
+        if name not in ATTN_TIMED:
             continue
         nbytes, ops, mask = _attn_work(case, q.element_size())
         bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
@@ -1026,6 +1421,7 @@ def phase_kernel_flash_attention(seed=0):
             qc, ke, ve, attn_mask=mask).float() - want.float())
             .abs().max())
         row = dict(case=name, dtype="bfloat16", route=route_for(dtype, Sq),
+                   head_dim=D,
                    timed="eager", ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                    library_max_abs=lib_err, bytes=nbytes, ops=ops,
                    bound_ms=bound_ms, bound_by=bound_by)
@@ -1429,6 +1825,12 @@ def main(argv=None):
     if "survey_full_width" in phases:
         main_path = phase_survey_full_width()
         k1.append((main_path["count"], main_path["routes"]))
+    if "static_golden" in phases:
+        k1.append(phase_static_golden())
+    if "static_full_width" in phases:
+        k1.append(phase_static_full_width())
+    if "genetic_vec" in phases:
+        k1.append(phase_genetic_vec())
     k1_routes = None
     if k1:
         launches["waterfill"] = sum(n for n, _ in k1)

@@ -1,10 +1,8 @@
 """Scheduler registry (paper §4.3) of the PyTorch port: the reference's
 19 names (``repro.core.schedulers``), served by copies of its
-framework-free scheduler modules.
-
-``genetic-vec`` stays registered but raises ``NotImplementedError``:
-the reference scores its population with the JAX static simulator, and
-the port has no static simulator yet (ROADMAP Queue A items 4–5)."""
+framework-free scheduler modules and, for ``genetic-vec``, by the
+port's ``GeneticVectorizedScheduler``, which scores its population on
+the port's static simulator (``device`` defaults to ``"cuda"``)."""
 from .base import SchedulerBase
 from .list_schedulers import (BlevelScheduler, TlevelScheduler, MCPScheduler,
                               DLSScheduler, ETFScheduler)
@@ -14,19 +12,7 @@ from .others import (SingleScheduler, RandomScheduler, WorkStealingScheduler,
 from .fixed import FixedScheduler
 from .det import (DetBlevelScheduler, DetTlevelScheduler, DetMCPScheduler,
                   DetETFScheduler, DetRandomScheduler, GreedyWorkerScheduler)
-
-
-class GeneticVectorizedScheduler(SchedulerBase):
-    """Placeholder for the reference's ``genetic-vec``: constructing it
-    raises ``NotImplementedError``."""
-
-    name = "genetic-vec"
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "'genetic-vec' is not ported to repro_torch yet: it scores "
-            "its population with the static simulator (ROADMAP Queue A "
-            "items 4-5)")
+from .genetic_vectorized import GeneticVectorizedScheduler
 
 
 SCHEDULERS = {

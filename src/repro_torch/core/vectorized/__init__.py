@@ -1,31 +1,47 @@
 """The port's vectorized ESTEE simulator: padded graph specs, in-loop
-schedulers, the batched dynamic simulator and its grid runner."""
+schedulers, the batched static and dynamic simulators and the grid
+runner.  The names are the reference package's (``__all__`` of
+``repro.core.vectorized``) but for its XLA-only ones: ``abstract_spec``,
+the jit trace counters and the sharded engine (``engine.py``)."""
 from .specs import (GraphSpec, BucketedGraphSpec, BucketGroup, encode_graph,
                     as_bucketed, bucket_shape, pad_spec, pad_specs, pad_to,
-                    round_up, spec_from_numpy, stack_specs, t_bucket,
-                    T_EDGES, PAD_MULTIPLE, FRONTIER_FLOOR, frontier_cap,
-                    frontier_caps_for, frontier_caps_for_spec)
-from .sim import (make_bucket_dynamic_simulator, BucketedGridRunner,
-                  DynamicGridRunner, simulate_dynamic_grid,
-                  DOWNLOAD_SLOTS, PAIR_SLOTS, SimResult)
+                    round_up, spec_from_numpy, stack_specs,
+                    t_bucket, T_EDGES, PAD_MULTIPLE, FRONTIER_FLOOR,
+                    frontier_cap, frontier_caps_for, frontier_caps_for_spec)
+from .sim import (make_simulator, simulate_batch, make_dynamic_simulator,
+                  simulate_dynamic_grid, make_bucket_simulator,
+                  make_bucket_dynamic_simulator, DynamicGridRunner,
+                  BucketedGridRunner, DOWNLOAD_SLOTS, PAIR_SLOTS, SimResult)
 from .api import SimConfig, build, build_for_graph, make_grid_runner
-from .scheduling import (VEC_SCHEDULERS, make_bucket_scheduler,
-                         make_bucket_greedy_placer, bucket_ready_tasks,
-                         bucket_transfer_costs, frontier_mask,
-                         bucket_blevel, bucket_tlevel, rank_priorities)
+from .scheduling import (VEC_SCHEDULERS, make_vec_scheduler,
+                         make_bucket_scheduler, bucket_ready_tasks,
+                         frontier_mask, make_static_blevel_scheduler,
+                         make_static_tlevel_scheduler,
+                         make_static_mcp_scheduler, make_etf_scheduler,
+                         make_random_scheduler, make_greedy_placer,
+                         make_bucket_greedy_placer, make_blevel_fn,
+                         make_tlevel_fn, make_transfer_costs,
+                         bucket_transfer_costs, bucket_blevel, bucket_tlevel,
+                         rank_priorities)
 from .waterfill import waterfill, waterfill_simple
 
 __all__ = ["GraphSpec", "BucketedGraphSpec", "BucketGroup", "encode_graph",
            "as_bucketed", "bucket_shape", "pad_spec", "pad_specs", "pad_to",
-           "round_up", "spec_from_numpy", "stack_specs", "t_bucket",
-           "T_EDGES", "PAD_MULTIPLE", "FRONTIER_FLOOR", "frontier_cap",
-           "frontier_caps_for", "frontier_caps_for_spec",
-           "make_bucket_dynamic_simulator", "BucketedGridRunner",
-           "DynamicGridRunner", "simulate_dynamic_grid",
+           "round_up", "spec_from_numpy", "stack_specs",
+           "t_bucket", "T_EDGES", "PAD_MULTIPLE", "FRONTIER_FLOOR",
+           "frontier_cap", "frontier_caps_for", "frontier_caps_for_spec",
+           "make_simulator", "simulate_batch",
+           "make_dynamic_simulator", "simulate_dynamic_grid",
+           "make_bucket_simulator", "make_bucket_dynamic_simulator",
+           "DynamicGridRunner", "BucketedGridRunner",
            "DOWNLOAD_SLOTS", "PAIR_SLOTS", "SimResult",
            "SimConfig", "build", "build_for_graph", "make_grid_runner",
-           "VEC_SCHEDULERS", "make_bucket_scheduler",
-           "make_bucket_greedy_placer", "bucket_ready_tasks",
-           "bucket_transfer_costs", "frontier_mask",
-           "bucket_blevel", "bucket_tlevel", "rank_priorities",
-           "waterfill", "waterfill_simple"]
+           "VEC_SCHEDULERS", "make_vec_scheduler", "make_bucket_scheduler",
+           "bucket_ready_tasks", "frontier_mask",
+           "make_static_blevel_scheduler", "make_static_tlevel_scheduler",
+           "make_static_mcp_scheduler", "make_etf_scheduler",
+           "make_random_scheduler", "make_greedy_placer",
+           "make_bucket_greedy_placer",
+           "make_blevel_fn", "make_tlevel_fn", "make_transfer_costs",
+           "bucket_transfer_costs", "bucket_blevel", "bucket_tlevel",
+           "rank_priorities", "waterfill", "waterfill_simple"]

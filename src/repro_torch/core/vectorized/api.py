@@ -3,6 +3,9 @@ of ``repro.core.vectorized.api``.
 
     from repro_torch.core.vectorized.api import build, SimConfig
 
+    run = build(spec, n_workers=4, cores=2)            # static sim
+    res = run(assignment, priority)                    # -> SimResult
+
     dyn = build(spec, n_workers=4, cores=2, scheduler="greedy",
                 dynamic=True, config=SimConfig(msd=1.0))
     res = dyn(est_dur, est_size)                       # -> SimResult
@@ -16,18 +19,13 @@ for.  ``spec=None`` returns the late-bound bucket form (the spec becomes
 the first argument).  Arguments may carry a leading row axis — one row
 per simulation — in place of the reference's ``jax.vmap``.
 
-Not ported yet (they raise ``NotImplementedError``): the static
-simulator (``build`` with ``scheduler=None`` and ``dynamic=False``) and
-the sharded grid engine (``engine="sharded"``; its ``devices``,
-``stream_rows`` and ``cache_dir`` options are unknown here and raise
-``TypeError``).
+Not ported yet: the sharded grid engine (``engine="sharded"`` raises
+``NotImplementedError``; its ``devices``, ``stream_rows`` and
+``cache_dir`` options are unknown here and raise ``TypeError``).
 """
 from __future__ import annotations
 
 import dataclasses
-
-import numpy as np
-import torch
 
 from ...device import resolve_device
 from . import scheduling as _scheduling
@@ -91,14 +89,15 @@ def build(spec=None, *, n_workers: int, cores=None, scheduler=None,
 
     Dispatch:
 
+    * ``scheduler=None`` (default) — the **static simulator**:
+      ``run(assignment, priority, durations, sizes, bandwidth, cores)
+      -> SimResult`` over rows of schedules.
     * ``dynamic=True`` — the **dynamic simulator** for ``scheduler``
       (default ``"blevel"``): ``run(est_durations, est_sizes, msd,
       decision_delay, bandwidth, seed, cores) -> SimResult``.
     * ``scheduler`` given with ``dynamic=False`` — the **static
       schedule function**: ``schedule(est_durations, est_sizes,
       bandwidth, seed, cores) -> (assignment, priority)`` over rows.
-    * ``scheduler=None`` with ``dynamic=False`` — the static simulator,
-      not ported yet: raises ``NotImplementedError``.
 
     ``spec`` may be a ``GraphSpec``/``BucketedGraphSpec`` (bound now)
     or ``None`` (bucket form: the callable takes the spec first).
@@ -106,11 +105,6 @@ def build(spec=None, *, n_workers: int, cores=None, scheduler=None,
     options raise ``TypeError``."""
     dev = resolve_device(device)
     cfg = _merge_config(config, opts)
-    if scheduler is None and not dynamic:
-        raise NotImplementedError(
-            "the static simulator (build with scheduler=None, "
-            "dynamic=False) is not ported to repro_torch yet (ROADMAP: "
-            "port make_bucket_simulator, sim.py:278-764)")
     bspec = None if spec is None else as_bucketed(spec)
     if (bspec is not None and cfg.frontier is not False
             and cfg.frontier_caps is None):
@@ -124,22 +118,24 @@ def build(spec=None, *, n_workers: int, cores=None, scheduler=None,
                              _scheduling._resolve_cores(n_workers, cores),
                              "build")
 
+    if scheduler is None and not dynamic:
+        brun = _sim.make_bucket_simulator(
+            n_workers, cores, netmodel, cfg.flow_rounds, cfg.max_steps,
+            max_cores=max_cores, flow_slots=cfg.flow_slots,
+            frontier=cfg.frontier, frontier_caps=cfg.frontier_caps,
+            waterfill_impl=cfg.waterfill_impl, device=dev,
+            check_every=cfg.check_every)
+        if bspec is None:
+            return brun
+        return lambda assignment, priority, durations=None, sizes=None, \
+            bandwidth=100 * 1024 * 1024.0, cores=None: brun(
+                bspec, assignment, priority, durations, sizes, bandwidth,
+                cores)
+
     if not dynamic:
-        fn = _scheduling.make_bucket_scheduler(n_workers, cores, scheduler,
-                                               max_cores)
-
-        def schedule(bspec_, est_dur, est_size, bandwidth, seed=0,
-                     cores=None):
-            est_dur = _as_rows_tensor(est_dur, dev)
-            est_size = _as_rows_tensor(est_size, dev)
-            unbatched = est_dur.dim() == 1
-            if unbatched:
-                est_dur, est_size = est_dur[None], est_size[None]
-            spec_rows = _sim._rows_spec(bspec_, est_dur.shape[0], dev)
-            aw, prio = fn(spec_rows, est_dur, est_size, bandwidth, seed,
-                          cores)
-            return (aw[0], prio[0]) if unbatched else (aw, prio)
-
+        schedule = _scheduling.rows_schedule(
+            _scheduling.make_bucket_scheduler(n_workers, cores, scheduler,
+                                              max_cores), dev)
         if bspec is None:
             return schedule
         return lambda est_dur, est_size, bandwidth, seed=0, cores=None: \
@@ -161,12 +157,6 @@ def build(spec=None, *, n_workers: int, cores=None, scheduler=None,
         return brun(bspec, est_durations, est_sizes, msd, decision_delay,
                     bandwidth, seed, cores)
     return run
-
-
-def _as_rows_tensor(x, dev):
-    if torch.is_tensor(x):
-        return x.to(dev).float()
-    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
 
 def make_grid_runner(entries, scheduler, n_workers, cores, *,

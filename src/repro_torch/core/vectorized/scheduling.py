@@ -24,12 +24,14 @@ cost segment sum adds each task's edges in edge order on every device.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
+from ...device import resolve_device
 from ._ops import NEG, take
-from .specs import BucketedGraphSpec
+from .specs import BucketedGraphSpec, as_bucketed, spec_rows
 
 # name -> kind; membership == "has a vectorized in-loop implementation"
 VEC_SCHEDULERS = {
@@ -416,6 +418,96 @@ def make_bucket_scheduler(n_workers, cores, name, max_cores=None):
     return _BUCKET_FACTORIES[name](n_workers, cores, max_cores)
 
 
+def _float_rows(x, device):
+    """``x`` (numpy, list or tensor) as a float32 tensor on ``device``."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def rows_schedule(fn, device):
+    """A row-batched static scheduler ``fn`` (``make_bucket_scheduler``'s
+    form) as ``schedule(bspec, est_durations, est_sizes, bandwidth,
+    seed=0, cores=None)`` on ``device``: the spec may be unbatched
+    (shared by the rows), and unbatched estimates give an unbatched
+    ``(assignment, priority)``."""
+    def schedule(bspec, est_dur, est_size, bandwidth, seed=0, cores=None):
+        est_dur = _float_rows(est_dur, device)
+        est_size = _float_rows(est_size, device)
+        unbatched = est_dur.dim() == 1
+        if unbatched:
+            est_dur, est_size = est_dur[None], est_size[None]
+        rows = spec_rows(bspec, est_dur.shape[0], device)
+        aw, prio = fn(rows, est_dur, est_size, bandwidth, seed, cores)
+        return (aw[0], prio[0]) if unbatched else (aw, prio)
+    return schedule
+
+
+def _bound(spec, device, fn):
+    """``fn(rows_spec, *args)`` bound to one graph's spec on ``device``.
+    The arguments keep their dtypes (floats become float32); unbatched
+    arguments (``args[0]`` one-dimensional) gain a row axis, and the
+    result loses it again."""
+    b = as_bucketed(spec)
+    dev = resolve_device(device)
+
+    def call(*args):
+        args = [a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+                for a in args]
+        args = [(a.float() if a.is_floating_point() else a).to(dev)
+                for a in args]
+        unbatched = args[0].dim() == 1
+        if unbatched:
+            args = [a[None] for a in args]
+        out = fn(spec_rows(b, args[0].shape[0], dev), *args)
+        return out[0] if unbatched else out
+    return call
+
+
+def make_vec_scheduler(spec, n_workers, cores, name, *, device="cuda"):
+    """Deprecated per-graph factory — use
+    ``repro_torch.core.vectorized.api.build(spec, scheduler=name)``.
+    Binds ``spec`` now and returns ``schedule(est_durations, est_sizes,
+    bandwidth, seed) -> (assignment, priority)`` on ``device``."""
+    warnings.warn(
+        "make_vec_scheduler is deprecated; use "
+        "repro_torch.core.vectorized.api.build(spec, scheduler=...)",
+        DeprecationWarning, stacklevel=2)
+    return _bind(lambda W, c: make_bucket_scheduler(W, c, name))(
+        spec, n_workers, cores, device=device)
+
+
+def _bind(bucket_factory):
+    """The per-graph binding of a static bucket scheduler factory:
+    ``make(spec, n_workers, cores, device=) -> schedule(est_durations,
+    est_sizes, bandwidth, seed=0)``."""
+    def make(spec, n_workers, cores, *, device="cuda"):
+        b = as_bucketed(spec)
+        schedule = rows_schedule(bucket_factory(n_workers, cores),
+                                 resolve_device(device))
+        return lambda est_dur, est_size, bandwidth, seed=0: \
+            schedule(b, est_dur, est_size, bandwidth, seed)
+    return make
+
+
+make_static_blevel_scheduler = _bind(make_bucket_blevel_scheduler)
+make_static_tlevel_scheduler = _bind(make_bucket_tlevel_scheduler)
+make_static_mcp_scheduler = _bind(make_bucket_mcp_scheduler)
+make_etf_scheduler = _bind(make_bucket_etf_scheduler)
+make_random_scheduler = _bind(make_bucket_random_scheduler)
+
+
+def make_blevel_fn(spec, *, device="cuda"):
+    """Legacy binding: close over one graph, return ``blevel(est_dur)``
+    (``f32[T]`` or ``[R, T]``)."""
+    return _bound(spec, device, bucket_blevel)
+
+
+def make_tlevel_fn(spec, *, device="cuda"):
+    """Legacy binding: close over one graph, return ``tlevel(est_dur)``."""
+    return _bound(spec, device, bucket_tlevel)
+
+
 def frontier_mask(frontier, n):
     """Expand a bounded frontier (``i64[R, C]``, ``-1`` = empty slot) into
     a dense ``bool[R, n]`` membership mask."""
@@ -492,6 +584,14 @@ def bucket_transfer_costs(bspec, size_now, missing_ow, table=None):
     return out
 
 
+def make_transfer_costs(spec, n_workers, *, device="cuda"):
+    """Legacy binding of ``bucket_transfer_costs`` for one graph:
+    ``costs(size_now f32[O], missing_ow bool[O, W]) -> f32[T, W]`` (or
+    all with a leading row axis)."""
+    del n_workers
+    return _bound(spec, device, bucket_transfer_costs)
+
+
 def make_bucket_greedy_placer(n_workers, cores):
     """Returns ``place(bspec, ready_unassigned, cost_tw, load0, cores) ->
     i64[R, T]`` (proposed worker per task, -1 where none).
@@ -532,3 +632,10 @@ def make_bucket_greedy_placer(n_workers, cores):
         return pw[:, :T]
 
     return place
+
+
+def make_greedy_placer(spec, n_workers, cores, *, device="cuda"):
+    """Legacy binding of ``make_bucket_greedy_placer`` for one graph:
+    ``place(ready_unassigned bool[T], cost_tw f32[T, W], load0 i64[W])
+    -> i64[T]`` (or all with a leading row axis)."""
+    return _bound(spec, device, make_bucket_greedy_placer(n_workers, cores))

@@ -1,31 +1,35 @@
-"""The port's dynamic discrete-event simulator, batched over rows — the
-counterpart of ``repro.core.vectorized.sim.make_bucket_dynamic_simulator``
-and ``BucketedGridRunner``.
+"""The port's discrete-event simulators, batched over rows — the
+counterparts of ``repro.core.vectorized.sim``: the static simulator
+(``make_bucket_simulator``: the caller's ``task -> worker`` schedule),
+the dynamic one (``make_bucket_dynamic_simulator``: an in-loop
+scheduler) and the dynamic grid runner ``BucketedGridRunner``.
 
 The reference runs one simulation inside ``jax.lax.while_loop`` and
 lifts it to a grid with ``jax.vmap``.  PyTorch has no vmap over a
 data-dependent loop, so here every carry has a leading row axis
-``[R, ...]`` — one row per (cluster, graph, grid point) — and one Python
-loop advances all rows together.  Each row has a ``live`` mask; a row
-that has finished is frozen with ``torch.where``, never branched on,
-which is exactly what vmap of ``while_loop`` does, so ``n_steps`` and
-``n_events`` per row equal the reference's.  The host reads
-``live.any()`` every ``check_every`` steps, not per event.
+``[R, ...]`` — one row per (cluster, graph, grid point, schedule) — and
+one Python loop advances all rows together (``_drive``).  Each row has a
+``live`` mask; a row that has finished is frozen with ``torch.where``,
+never branched on, which is exactly what vmap of ``while_loop`` does, so
+``n_steps`` and ``n_events`` per row equal the reference's.  The host
+reads ``live.any()`` every ``check_every`` steps, not per event.
 
-Semantics are the reference's default configuration (flow slots on and
-the ready frontiers on; ``maxmin`` and ``simple`` netmodels):
+Semantics are the reference's default configuration (flow slots on for
+``maxmin``, none for ``simple``, the ready frontiers on):
 
-* MSD-gated scheduler invocations with event batching, a
-  ``decision_delay`` before assignments reach the workers, and imode
-  estimates (``est_durations``/``est_sizes``, true values once
-  finished);
-* static schedules (``blevel``/``tlevel``/``mcp``/``etf``/``random``)
-  computed once from the t=0 estimates, or the dynamic ``greedy``
-  placer at every invocation;
-* downloads from the producing worker, deduplicated per (object,
-  destination) with the representative edge pinned when the key first
-  becomes wanted; Appendix-A slot limits (``DOWNLOAD_SLOTS`` per
-  destination, ``PAIR_SLOTS`` per pair) on the max-min model;
+* the static simulator takes a fixed schedule with msd 0 and no
+  decision delay;
+* the dynamic one adds MSD-gated scheduler invocations with event
+  batching, a ``decision_delay`` before assignments reach the workers,
+  and imode estimates (``est_durations``/``est_sizes``, true values once
+  finished); static schedules (``blevel``/``tlevel``/``mcp``/``etf``/
+  ``random``) are computed once from the t=0 estimates, the dynamic
+  ``greedy`` placer runs at every invocation;
+* downloads come from the producing worker, deduplicated per (object,
+  destination) (the static path knows every key's representative edge
+  up front; the dynamic one pins it when the key first becomes wanted);
+  Appendix-A slot limits (``DOWNLOAD_SLOTS`` per destination,
+  ``PAIR_SLOTS`` per pair) on the max-min model;
 * max-min rates over the bounded flow-slot pool (``S =
   DOWNLOAD_SLOTS * W``), recomputed at every event through
   ``waterfill_impl``: ``"auto"`` launches the CUDA kernel for tensors
@@ -45,6 +49,7 @@ so two runs on the card give bitwise the same result.
 from __future__ import annotations
 
 import typing
+import warnings
 
 import numpy as np
 import torch
@@ -56,8 +61,9 @@ from .scheduling import (VEC_SCHEDULERS, _cores_arg, _resolve_cores,
                          bucket_blevel, bucket_transfer_costs, edge_table,
                          graph_view, make_bucket_greedy_placer,
                          make_bucket_scheduler, rank_priorities)
-from .specs import (BucketedGraphSpec, bucket_shape, encode_graph,
-                    frontier_caps_for, pad_spec, pad_to, stack_specs)
+from .specs import (as_bucketed, bucket_shape, encode_graph,
+                    frontier_caps_for, pad_spec, pad_to, spec_rows,
+                    stack_specs)
 from .waterfill import waterfill as waterfill_plain, waterfill_simple
 
 READY_BOOST = 1_000_000.0
@@ -238,18 +244,436 @@ def _check_cpus_fit(specs, cores, context: str):
                 f"the largest worker has {max_cores}")
 
 
-def _rows_spec(bspec, R, device) -> BucketedGraphSpec:
-    """The spec as tensors on ``device`` with exactly ``R`` rows (an
-    unbatched spec is repeated)."""
-    if not all(torch.is_tensor(v) and v.device == device
-               for v in bspec.fields().values()):
-        bspec = bspec.to(device)
-    if bspec.B is None:
-        return bspec.map(lambda x: x.unsqueeze(0).expand(R, -1).contiguous())
-    if bspec.B != R:
-        raise ValueError(f"spec has {bspec.B} rows but the estimates have "
-                         f"{R}")
-    return bspec
+def _rows_arg(x, R, dtype, device):
+    """A per-task/object argument as ``[R, n]`` on ``device``: ``[n]`` is
+    shared by every row."""
+    t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                        device=device).to(dtype)
+    return t.unsqueeze(0).expand(R, -1) if t.dim() == 1 else t
+
+
+def _frontier_caps(frontier_caps, T, O, E):
+    """``(CF, CT)``: the shape-derived caps, or the override."""
+    if frontier_caps is None:
+        return frontier_caps_for((T, O, E))
+    # an explicit override never exceeds the axis itself
+    return min(frontier_caps[0], E), min(frontier_caps[1], T)
+
+
+def _flow_rounds(st, c_dst, c_src, c_prio, c_bytes, W, flow_rounds,
+                 slot_dst):
+    """The max-min flow picks of one event over the candidate frontier
+    ``st["fr_flow"]`` (``c_*``: each candidate's destination, source,
+    download priority and bytes): ``flow_rounds`` rounds of at most one
+    pick per destination worker under the Appendix-A slot limits, each
+    pick moved into the flow-slot pool.  ``-edge_id`` reproduces the
+    reference's tie-break."""
+    R = c_dst.shape[0]
+    fr = st["fr_flow"]
+    alive = fr >= 0
+    c_pair = c_src * W + c_dst
+    neg_id = -fr.float()
+    occ = st["slot_edge"] >= 0
+    dcnt = occ.view(R, W, DOWNLOAD_SLOTS).sum(dim=2)
+    pcnt = scatter_count(W * W, st["slot_src"].long() * W + slot_dst, occ)
+    alive0 = alive
+    for _ in range(flow_rounds):
+        eligible = (alive & (take(dcnt, c_dst) < DOWNLOAD_SLOTS)
+                    & (take(pcnt, c_pair) < PAIR_SLOTS))
+        pick = _pick_per_bucket(c_dst, W, eligible, c_prio, neg_id)
+        st = _acquire_slots(st, pick, c_dst, c_src, c_bytes, W, ids=fr)
+        # occupancy moves only by this round's own picks: at most one
+        # per destination worker
+        pw_pair = scatter_max(W, c_dst, torch.where(pick, c_pair, -1), -1)
+        picked_w = pw_pair >= 0
+        dcnt = dcnt + picked_w.long()
+        pcnt = pcnt + scatter_count(W * W, pw_pair.clamp(min=0), picked_w)
+        alive = alive & ~pick
+    st["fr_flow"] = torch.where(alive0 & ~alive, -1, fr)
+    return st
+
+
+def _task_rounds(st, c_w, c_cpus, c_prio, c_fin, W, max_cores):
+    """Appendix-A start rounds over the enabled-task frontier
+    ``st["fr_task"]`` (``c_*``: each candidate's worker, cores, priority
+    and duration).  The frontier holds exactly the enabled, assigned,
+    not-started tasks, so blocking matches a full scan; ``-task_id`` is
+    the reference's tie-break.  Every round shares ``st["now"]``, so the
+    starts of all rounds land in one write."""
+    R, T = st["t_started"].shape
+    fr = st["fr_task"]
+    alive = fr >= 0
+    neg_id = -fr.float()
+    alive0 = alive
+    free = st["free"]
+    for _ in range(max_cores):
+        free_at = take(free, c_w)
+        blocked = alive & (c_cpus > free_at)
+        maxblk = _bucket_max(c_w, W, torch.where(blocked, c_prio, NEG))
+        cand = alive & (c_cpus <= free_at) & (c_prio >= take(maxblk, c_w))
+        pick = _pick_per_bucket(c_w, W, cand, c_prio, neg_id)
+        # <= 1 pick per worker, so the core delta is a max
+        free = free - scatter_max(W, c_w, torch.where(pick, c_cpus, 0), 0)
+        alive = alive & ~pick
+    newly = alive0 & ~alive
+    dest = torch.where(newly, fr, T)
+    started = torch.cat([st["t_started"], torch.zeros(
+        R, 1, dtype=torch.bool, device=fr.device)], dim=1)
+    started.scatter_(1, dest, True)
+    t_finish = torch.cat([st["t_finish"], torch.zeros(
+        R, 1, dtype=torch.float32, device=fr.device)], dim=1)
+    t_finish.scatter_(1, dest, st["now"][:, None] + c_fin)
+    st["t_started"] = started[:, :T]
+    st["t_finish"] = t_finish[:, :T]
+    st["free"] = free
+    st["fr_task"] = torch.where(newly, -1, fr)
+    return st
+
+
+def _granule(device):
+    """The float32 constants of the time granule ``now * 6e-7 + 1e-6``
+    on ``device`` (made once per run, not per step)."""
+    return (torch.tensor(6e-7, dtype=torch.float32, device=device),
+            torch.tensor(TIME_EPS, dtype=torch.float32, device=device))
+
+
+def _advance(st, rates, active, rem, granule, next_extra=None):
+    """One event step's time advance: the next task finish or flow
+    completion (or ``next_extra``, another ``[R]`` candidate time), with
+    the flows' remaining bytes integrated to it.  ETAs below the float32
+    time granule at ``now`` (``granule``: ``_granule``'s constants)
+    complete at once.  Returns ``(running, now, rem, done_now,
+    t_newly)``.  The reference's compiler contracts the granule and
+    ``rem - rates * dt`` into fused multiply-adds; ``fma32`` rounds them
+    the same way."""
+    now = st["now"]
+    running = st["t_started"] & ~st["t_done"]
+    t_next = torch.where(running, st["t_finish"], INF).amin(dim=1)
+    gran = fma32(now, *granule)
+    # double-where: rate-0 lanes must not divide
+    safe_rates = torch.where(rates > 0, rates, 1.0)
+    f_eta = torch.where(active & (rates > 0), rem / safe_rates, INF)
+    f_eta = torch.where(f_eta <= gran[:, None], 0.0, f_eta)
+    if f_eta.shape[1]:
+        f_next = now + f_eta.amin(dim=1)
+    else:
+        f_next = torch.full_like(now, INF)
+    nxt = torch.minimum(t_next, f_next)
+    if next_extra is not None:
+        nxt = torch.minimum(nxt, next_extra)
+    nxt = torch.maximum(nxt, now)                  # never go back
+    finite = torch.isfinite(nxt)
+    dt = torch.where(finite, nxt - now, 0.0)
+    now = torch.where(finite, nxt, now)
+    rem = torch.where(active, fma32(-rates, dt[:, None], rem), rem)
+    done_now = active & ((rem <= BYTES_EPS) | (rem <= rates * gran[:, None]))
+    t_newly = running & (st["t_finish"] <= now[:, None] + TIME_EPS)
+    return running, now, rem, done_now, t_newly
+
+
+def _drive(st, body, cond, check_every):
+    """Advance every row until none is live: ``body(st, live)`` is one
+    event step of all rows, and a row that is no longer live is frozen
+    with ``torch.where`` (what vmap of ``while_loop`` does), so its
+    ``n_steps`` and ``n_events`` equal the reference's.  The host reads
+    "any row live" every ``check_every`` steps."""
+    live = cond(st)
+    R = live.shape[0]
+    step = 0
+    while True:
+        if step % check_every == 0 and not bool(live.any()):
+            break
+        new = body(st, live)
+        st = {k: torch.where(live.view((R,) + (1,) * (v.dim() - 1)),
+                             new[k], v) for k, v in st.items()}
+        live = cond(st)
+        step += 1
+    return st
+
+
+def _live(steps_cap):
+    def cond(st):
+        # an overflowed frontier is no longer sound — stop and report
+        return ((~st["t_done"].all(dim=1)) & (st["steps"] < steps_cap)
+                & ~st["overflow"])
+    return cond
+
+
+def _result(st, task_valid, transferred, unbatched):
+    makespan = torch.where(st["t_done"] & task_valid, st["t_finish"],
+                           0.0).amax(dim=1)
+    overflow = st["overflow"]
+    ok = st["t_done"].all(dim=1) & ~overflow
+    makespan = torch.where(ok, makespan, float("nan"))
+    res = SimResult(makespan, transferred, ok, overflow,
+                    st["n_events"].int(), st["steps"].int())
+    if unbatched:
+        res = SimResult(*(x[0] for x in res))
+    return res
+
+
+def _check_netmodel_options(netmodel, flow_slots, check_every):
+    if netmodel not in ("maxmin", "simple"):
+        raise ValueError(f"unknown netmodel {netmodel!r} (have 'maxmin', "
+                         f"'simple')")
+    if flow_slots is False:
+        raise NotImplementedError(
+            "flow_slots=False (the per-edge escape hatch) is not ported to "
+            "repro_torch; the port runs the default flow-slot path")
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+
+
+def _max_cores(cores_default, max_cores):
+    if max_cores is None:
+        if cores_default is None:
+            raise ValueError("max_cores is required when cores is None")
+        max_cores = max(int(cores_default.max()), 1)
+    return max(int(max_cores), 1)
+
+
+def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
+                          flow_rounds: int = 4, max_steps: int | None = None,
+                          *, max_cores: int | None = None, flow_slots=None,
+                          frontier=None, frontier_caps=None,
+                          waterfill_impl: str = "auto", device="cuda",
+                          check_every: int = 16):
+    """Returns ``run(bspec, assignment, priority, durations, sizes,
+    bandwidth, cores) -> SimResult``: the static simulator, a batched
+    mirror of the reference's ``make_bucket_simulator``.  The schedule
+    is the caller's (``task -> worker`` and priorities), msd and the
+    decision delay are 0.
+
+    Every argument of ``run`` may carry a leading row axis: the spec
+    ``[R, ...]`` (or one unbatched spec shared by all rows),
+    ``assignment`` ``i32[R, T]``, ``priority`` ``f32[R, T]`` (or ``[T]``
+    shared by the rows), ``durations`` ``[R, T]`` and ``sizes`` ``[R,
+    O]`` (``None``: the spec's own), ``bandwidth`` a scalar or ``[R]``,
+    and ``cores`` ``[W]`` or ``[R, W]`` (build with ``cores=None`` and
+    ``max_cores`` to pass it at call time).  An unbatched assignment
+    gives an unbatched result.
+
+    The configuration is the reference's default: the ready frontiers
+    on, flow slots on for ``maxmin`` and none for ``simple``.
+    ``flow_slots=False`` and ``frontier=False`` (its per-edge escape
+    hatches) are not ported and raise.  ``device``, ``check_every`` and
+    ``waterfill_impl`` are as for ``make_bucket_dynamic_simulator``."""
+    _check_netmodel_options(netmodel, flow_slots, check_every)
+    _resolve_frontier(frontier)
+    dev = resolve_device(device)
+    W = n_workers
+    cores_default = _resolve_cores(n_workers, cores)
+    max_cores = _max_cores(cores_default, max_cores)
+    simple = netmodel == "simple"
+    wf = None if simple else _make_waterfill(waterfill_impl, dev)
+    S = W * DOWNLOAD_SLOTS
+
+    def run(bspec, assignment, priority, durations=None, sizes=None,
+            bandwidth=100 * 1024 * 1024.0, cores=None):
+        a = torch.as_tensor(np.asarray(assignment)
+                            if not torch.is_tensor(assignment)
+                            else assignment, device=dev).long()
+        unbatched = a.dim() == 1
+        if unbatched:
+            a = a.unsqueeze(0)
+        R = a.shape[0]
+        spec = spec_rows(bspec, R, dev)
+        g = graph_view(spec)
+        T, O, E = g.T, g.O, g.E
+        steps_cap = max_steps if max_steps is not None else 4 * (T + E) + 64
+        cores_t = _cores_arg(cores, cores_default, R, dev)
+        assignment = a.clamp(0, W - 1)
+        priority = _rows_arg(priority, R, torch.float32, dev)
+        durations = (g.durations if durations is None
+                     else _rows_arg(durations, R, torch.float32, dev))
+        sizes = (g.sizes if sizes is None
+                 else _rows_arg(sizes, R, torch.float32, dev))
+        bandwidth_ = as_rows(bandwidth, R, torch.float32, dev)
+        use_slots = not simple and E > 0
+        e_task, e_obj, prod_e = g.e_task, g.e_obj, g.prod_e
+        n_inputs, cpus = g.n_inputs, g.cpus
+        task_valid, edge_valid = g.task_valid, g.edge_valid
+        e_ids = torch.arange(E, device=dev)
+        t_ids = torch.arange(T, device=dev)
+        # the schedule is fixed, so every flow's ends are known up front
+        f_dst = take(assignment, e_task)           # flow = input edge
+        f_src = take(take(assignment, g.producer), e_obj)
+        prio_e = take(priority, e_task)
+        cross = (f_src != f_dst) & edge_valid
+        # dedup: one flow per (object, destination) key, carried by the
+        # key's smallest valid edge id
+        key = e_obj * W + f_dst
+        rep = take(scatter_min(O * W, key, torch.where(edge_valid, e_ids, E),
+                               E), key)
+        needed = cross & (rep == e_ids) & edge_valid
+        rep_c = rep.clamp(max=max(E - 1, 0))       # in range for gathers
+        f_bytes = torch.where(edge_valid, take(sizes, e_obj), 0.0)
+        CF, CT = _frontier_caps(frontier_caps, T, O, E)
+        slot_dst = torch.arange(S, device=dev) // DOWNLOAD_SLOTS
+        slot_dst_k = slot_dst.int().expand(R, S).contiguous()
+        caps = bandwidth_[:, None].expand(R, W).contiguous()
+        granule = _granule(dev)
+
+        fr_task, ov0 = _frontier_append(
+            torch.full((R, CT), -1, dtype=torch.int64, device=dev),
+            (n_inputs <= 0) & task_valid, t_ids)
+        st = dict(
+            now=torch.zeros(R, device=dev),
+            t_started=~task_valid,
+            t_done=~task_valid,
+            t_finish=torch.full((R, T), INF, device=dev),
+            free=cores_t.clone(),
+            steps=torch.zeros(R, dtype=torch.int64, device=dev),
+            n_events=torch.zeros(R, dtype=torch.int64, device=dev),
+            overflow=ov0,
+            sat_cnt=torch.zeros(R, T, dtype=torch.int64, device=dev),
+            fr_task=fr_task,
+        )
+        if use_slots:
+            st.update(
+                slot_edge=torch.full((R, S), -1, dtype=torch.int64,
+                                     device=dev),
+                slot_src=torch.zeros(R, S, dtype=torch.int32, device=dev),
+                slot_rem=torch.zeros(R, S, device=dev),
+                in_cnt=torch.zeros(R, T, dtype=torch.int64, device=dev),
+                fr_flow=torch.full((R, CF), -1, dtype=torch.int64,
+                                   device=dev),
+                transferred=torch.zeros(R, device=dev),
+            )
+        elif E > 0:
+            # simple netmodel: flows are the input edges, no slot limits
+            st.update(f_started=torch.zeros(R, E, dtype=torch.bool,
+                                            device=dev),
+                      f_done=torch.zeros(R, E, dtype=torch.bool, device=dev),
+                      f_rem=f_bytes.clone())
+
+        def body(st, live):
+            st = dict(st)
+            if use_slots:
+                # the download priority stays exact: one scatter-max over
+                # all edges into the (object, destination) key space per
+                # event, gathered at the candidates
+                ready_t = st["in_cnt"] >= n_inputs
+                raw = torch.where(edge_valid, prio_e + READY_BOOST
+                                  * take(ready_t, e_task).float(), NEG)
+                keymax = scatter_max(O * W, key, raw, NEG)
+                cid = st["fr_flow"].clamp(min=0)
+                st = _flow_rounds(st, take(f_dst, cid), take(f_src, cid),
+                                  take(keymax, take(key, cid)),
+                                  take(f_bytes, cid), W, flow_rounds,
+                                  slot_dst)
+            tid = st["fr_task"].clamp(min=0)
+            st = _task_rounds(st, take(assignment, tid), take(cpus, tid),
+                              take(priority, tid), take(durations, tid), W,
+                              max_cores)
+            if use_slots:
+                active = st["slot_edge"] >= 0
+                rem = st["slot_rem"]
+                rates = wf(st["slot_src"], slot_dst_k, active, caps)
+            elif E > 0:
+                active = st["f_started"] & ~st["f_done"] & needed
+                rem = st["f_rem"]
+                rates = waterfill_simple(active, bandwidth_)
+            else:
+                active = torch.zeros(R, 0, dtype=torch.bool, device=dev)
+                rem = rates = torch.zeros(R, 0, device=dev)
+            _, now, rem, done_now, t_newly = _advance(st, rates, active, rem,
+                                                      granule)
+            st["free"] = st["free"] + torch.zeros(
+                R, W, dtype=torch.int64, device=dev).scatter_add_(
+                    1, assignment, torch.where(t_newly, cpus, 0))
+            st["now"] = now
+            st["t_done"] = st["t_done"] | t_newly
+            st["steps"] = st["steps"] + 1
+            st["n_events"] = (st["n_events"] + t_newly.sum(dim=1)
+                              + done_now.sum(dim=1))
+            if E == 0:
+                return st
+            t_newly_e = take(t_newly, prod_e)
+            if use_slots:
+                se = st["slot_edge"]
+                sec = se.clamp(min=0)
+                # this event's completions per edge; satisfaction folds
+                # into sat_cnt, so no per-edge carry survives
+                newly_done_e = scatter_or(E, sec, done_now)
+                st["slot_rem"] = rem
+                st["slot_edge"] = torch.where(done_now, -1, se)
+                st["transferred"] = st["transferred"] + torch.where(
+                    done_now, take(f_bytes, sec), 0.0).sum(dim=1)
+            else:
+                newly_done_e = done_now
+                st["f_rem"] = rem
+                st["f_done"] = st["f_done"] | done_now
+                # no slot limits: produced flows start at once (active
+                # from the next event on)
+                st["f_started"] = st["f_started"] | (needed & t_newly_e)
+            # frontier maintenance: fold this event's completions into
+            # the incremental counts, then append the new candidates
+            moved_sat = cross & take(newly_done_e, rep_c)
+            local_sat = t_newly_e & ~cross & edge_valid
+            sat_cnt = st["sat_cnt"] + scatter_count(T, e_task,
+                                                    moved_sat | local_sat)
+            newly_en = ((sat_cnt >= n_inputs) & (st["sat_cnt"] < n_inputs)
+                        & task_valid)
+            st["sat_cnt"] = sat_cnt
+            st["fr_task"], ov = _frontier_append(st["fr_task"], newly_en,
+                                                 t_ids)
+            if use_slots:
+                st["in_cnt"] = st["in_cnt"] + scatter_count(
+                    T, e_task, t_newly_e & edge_valid)
+                st["fr_flow"], ov_f = _frontier_append(
+                    st["fr_flow"], needed & t_newly_e, e_ids)
+                ov = ov | ov_f
+            st["overflow"] = st["overflow"] | ov
+            return st
+
+        st = _drive(st, body, _live(steps_cap), check_every)
+        if use_slots:
+            transferred = st["transferred"]
+        elif E > 0:
+            transferred = torch.where(needed & st["f_done"], f_bytes,
+                                      0.0).sum(dim=1)
+        else:
+            transferred = torch.zeros(R, device=dev)
+        return _result(st, task_valid, transferred, unbatched)
+
+    return run
+
+
+def make_simulator(spec, n_workers: int, cores, netmodel: str = "maxmin",
+                   flow_rounds: int = 4, max_steps: int | None = None,
+                   **kwargs):
+    """Deprecated per-graph binding of ``make_bucket_simulator`` — use
+    ``repro_torch.core.vectorized.api.build(spec, ...)``.  Returns
+    ``run(assignment, priority, durations, sizes, bandwidth) ->
+    SimResult`` with ``spec`` bound; ``kwargs`` (``device`` among them)
+    go to ``make_bucket_simulator``."""
+    warnings.warn(
+        "make_simulator is deprecated; use "
+        "repro_torch.core.vectorized.api.build(spec, n_workers=..., "
+        "cores=...)", DeprecationWarning, stacklevel=2)
+    bspec = as_bucketed(spec)
+    brun = make_bucket_simulator(n_workers, cores, netmodel, flow_rounds,
+                                 max_steps, **kwargs)
+
+    def run(assignment, priority, durations=None, sizes=None,
+            bandwidth=100 * 1024 * 1024.0):
+        return brun(bspec, assignment, priority, durations, sizes, bandwidth)
+
+    return run
+
+
+def simulate_batch(graph, assignments, priorities, n_workers, cores,
+                   netmodel="maxmin", bandwidth=100 * 1024 * 1024.0, *,
+                   device="cuda"):
+    """The rows of ``(assignments [R, T], priorities [R, T])`` on one
+    graph in one batched call.  Returns ``(makespans, transferred)`` as
+    ``[R]`` tensors on ``device``; raises if any simulation failed."""
+    bspec = as_bucketed(encode_graph(graph))
+    brun = make_bucket_simulator(n_workers, cores, netmodel, device=device)
+    res = brun(bspec, assignments, priorities, bandwidth=bandwidth)
+    _check_ok(res.ok, f"simulate_batch({graph.name!r})", res.overflow)
+    return res.makespan, res.transferred
 
 
 def make_bucket_dynamic_simulator(n_workers: int, cores,
@@ -282,26 +706,14 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
     if scheduler not in VEC_SCHEDULERS:
         raise KeyError(f"unknown vectorized scheduler {scheduler!r} "
                        f"(have {sorted(VEC_SCHEDULERS)})")
-    if netmodel not in ("maxmin", "simple"):
-        raise ValueError(f"unknown netmodel {netmodel!r} (have 'maxmin', "
-                         f"'simple')")
-    if flow_slots is False:
-        raise NotImplementedError(
-            "flow_slots=False (the per-edge escape hatch) is not ported to "
-            "repro_torch; the port runs the default flow-slot path")
-    if check_every < 1:
-        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    _check_netmodel_options(netmodel, flow_slots, check_every)
+    _resolve_frontier(frontier)
     dev = resolve_device(device)
     W = n_workers
     cores_default = _resolve_cores(n_workers, cores)
-    if max_cores is None:
-        if cores_default is None:
-            raise ValueError("max_cores is required when cores is None")
-        max_cores = max(int(cores_default.max()), 1)
-    max_cores = max(int(max_cores), 1)
+    max_cores = _max_cores(cores_default, max_cores)
     simple = netmodel == "simple"
     use_slots_cfg = not simple
-    _resolve_frontier(frontier)
     wf = None if simple else _make_waterfill(waterfill_impl, dev)
     S = W * DOWNLOAD_SLOTS
     dynamic_sched = VEC_SCHEDULERS[scheduler] == "dynamic"
@@ -325,7 +737,7 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
         if unbatched:
             est_d, est_s = est_d.unsqueeze(0), est_s.unsqueeze(0)
         R = est_d.shape[0]
-        spec = _rows_spec(bspec, R, dev)
+        spec = spec_rows(bspec, R, dev)
         g = graph_view(spec)
         T, O, E = g.T, g.O, g.E
         F = O * W
@@ -351,8 +763,7 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
         slot_dst = (torch.arange(S, device=dev) // DOWNLOAD_SLOTS)
         slot_dst_k = slot_dst.int().expand(R, S).contiguous()
         caps = bandwidth_[:, None].expand(R, W).contiguous()
-        c_gran = torch.tensor(6e-7, dtype=torch.float32, device=dev)
-        c_eps = torch.tensor(TIME_EPS, dtype=torch.float32, device=dev)
+        granule = _granule(dev)
 
         if dynamic_sched:
             greedy_prio = rank_priorities(bucket_blevel(g, est_dur))
@@ -369,11 +780,7 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             p_prio0 = prio0
             p_time0 = torch.where(task_valid, delay[:, None], INF)
 
-        if frontier_caps is None:
-            CF, CT = frontier_caps_for((T, O, E))
-        else:
-            # an explicit override never exceeds the axis itself
-            CF, CT = min(frontier_caps[0], E), min(frontier_caps[1], T)
+        CF, CT = _frontier_caps(frontier_caps, T, O, E)
 
         def zf(*shape):
             return torch.zeros(*shape, dtype=torch.float32, device=dev)
@@ -478,79 +885,19 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
 
         # ----------------------------------------------------- workers
         def start_flows_frontier(st, keymax):
-            """Max-min flow picks over the pinned candidate list; the
-            slot pool holds in-flight state and Appendix-A occupancy.
-            ``-edge_id`` reproduces the reference's tie-break."""
-            fr = st["fr_flow"]
-            cid = fr.clamp(min=0)
-            alive = fr >= 0
+            """Max-min flow picks over the pinned candidate list."""
+            cid = st["fr_flow"].clamp(min=0)
             c_dst = take(st["aw"], take(e_task, cid)).clamp(min=0)
             c_src = take(st["aw"], take(prod_e, cid)).clamp(min=0)
-            c_pair = c_src * W + c_dst
-            c_prio = take(keymax, take(e_obj, cid) * W + c_dst)
-            c_bytes = take(e_bytes, cid)
-            neg_id = -fr.float()
-            occ = st["slot_edge"] >= 0
-            dcnt = occ.view(R, W, DOWNLOAD_SLOTS).sum(dim=2)
-            pair_s = st["slot_src"].long() * W + slot_dst
-            pcnt = scatter_count(W * W, pair_s, occ)
-            alive0 = alive
-            for _ in range(flow_rounds):
-                eligible = (alive & (take(dcnt, c_dst) < DOWNLOAD_SLOTS)
-                            & (take(pcnt, c_pair) < PAIR_SLOTS))
-                pick = _pick_per_bucket(c_dst, W, eligible, c_prio, neg_id)
-                st = _acquire_slots(st, pick, c_dst, c_src, c_bytes, W,
-                                    ids=fr)
-                # occupancy moves only by this round's own picks: at
-                # most one per destination worker
-                pw_pair = scatter_max(W, c_dst, torch.where(pick, c_pair,
-                                                            -1), -1)
-                picked_w = pw_pair >= 0
-                dcnt = dcnt + picked_w.long()
-                pcnt = pcnt + scatter_count(W * W, pw_pair.clamp(min=0),
-                                            picked_w)
-                alive = alive & ~pick
-            st["fr_flow"] = torch.where(alive0 & ~alive, -1, fr)
-            return st
+            return _flow_rounds(st, c_dst, c_src,
+                                take(keymax, take(e_obj, cid) * W + c_dst),
+                                take(e_bytes, cid), W, flow_rounds, slot_dst)
 
         def start_tasks_frontier(st):
-            """Appendix-A start rounds over the bounded enabled list —
-            invariantly exactly the enabled & assigned & not-started
-            tasks, so blocking matches the full [T] scan."""
-            fr = st["fr_task"]
-            tid = fr.clamp(min=0)
-            alive = fr >= 0
-            c_w = take(st["aw"], tid).clamp(min=0)
-            c_cpus = take(cpus, tid)
-            c_prio = take(st["ap"], tid)
-            c_fin = take(durations_true, tid)
-            neg_id = -fr.float()
-            alive0 = alive
-            free = st["free"]
-            for _ in range(max_cores):
-                free_at = take(free, c_w)
-                blocked = alive & (c_cpus > free_at)
-                maxblk = _bucket_max(c_w, W, torch.where(blocked, c_prio,
-                                                         NEG))
-                cand = alive & (c_cpus <= free_at) \
-                    & (c_prio >= take(maxblk, c_w))
-                pick = _pick_per_bucket(c_w, W, cand, c_prio, neg_id)
-                # <= 1 pick per worker, so the core delta is a max
-                free = free - scatter_max(W, c_w, torch.where(pick, c_cpus,
-                                                              0), 0)
-                alive = alive & ~pick
-            newly = alive0 & ~alive
-            dest = torch.where(newly, fr, T)
-            started = torch.cat([st["t_started"], zb(R, 1)], dim=1)
-            started.scatter_(1, dest, True)
-            fin_now = (st["now"][:, None] + c_fin)
-            t_finish = torch.cat([st["t_finish"], zf(R, 1)], dim=1)
-            t_finish.scatter_(1, dest, fin_now)
-            st["t_started"] = started[:, :T]
-            st["t_finish"] = t_finish[:, :T]
-            st["free"] = free
-            st["fr_task"] = torch.where(newly, -1, fr)
-            return st
+            tid = st["fr_task"].clamp(min=0)
+            return _task_rounds(st, take(st["aw"], tid).clamp(min=0),
+                                take(cpus, tid), take(st["ap"], tid),
+                                take(durations_true, tid), W, max_cores)
 
         def rates_of(st):
             if not use_slots:
@@ -612,40 +959,20 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
                 st = start_flows_frontier(st, keymax)
             st = start_tasks_frontier(st)
             rates = rates_of(st)
-            running = st["t_started"] & ~st["t_done"]
-            now = st["now"]
-            t_next = torch.where(running, st["t_finish"], INF).amin(dim=1)
-            # the reference's compiler contracts both multiply-adds of the
-            # time advance into FMAs; fma32 rounds them the same way
-            gran = fma32(now, c_gran, c_eps)
             if use_slots:
                 active = st["slot_edge"] >= 0
                 rem = st["slot_rem"]
             else:
                 active = st["f_started"] & ~st["f_done"]
                 rem = st["f_rem"]
-            # double-where: rate-0 lanes must not divide
-            safe_rates = torch.where(rates > 0, rates, 1.0)
-            f_eta = torch.where(active & (rates > 0), rem / safe_rates, INF)
-            f_eta = torch.where(f_eta <= gran[:, None], 0.0, f_eta)
-            if f_eta.shape[1]:
-                f_next = now + f_eta.amin(dim=1)
-            else:
-                f_next = torch.full_like(now, INF)
-            nxt = torch.minimum(t_next, f_next)
-            nxt = torch.minimum(nxt, st["pt"].amin(dim=1))
+            next_extra = st["pt"].amin(dim=1)      # pending applies
             if dynamic_sched:
-                sched_next = torch.where(
-                    st["events"], torch.maximum(now, st["last"] + msd_), INF)
-                nxt = torch.minimum(nxt, sched_next)
-            nxt = torch.maximum(nxt, now)              # never go back
-            finite = torch.isfinite(nxt)
-            dt = torch.where(finite, nxt - now, 0.0)
-            now = torch.where(finite, nxt, now)
-            rem = torch.where(active, fma32(-rates, dt[:, None], rem), rem)
-            done_now = active & ((rem <= BYTES_EPS)
-                                 | (rem <= rates * gran[:, None]))
-            t_newly = running & (st["t_finish"] <= now[:, None] + TIME_EPS)
+                now = st["now"]
+                next_extra = torch.minimum(next_extra, torch.where(
+                    st["events"], torch.maximum(now, st["last"] + msd_),
+                    INF))
+            _, now, rem, done_now, t_newly = _advance(st, rates, active, rem,
+                                                      granule, next_extra)
             # finished tasks all have aw >= 0
             st["free"] = st["free"] + torch.zeros(
                 R, W, dtype=torch.int64, device=dev).scatter_add_(
@@ -677,36 +1004,40 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
                                                              done_now)
             return st
 
-        def cond(st):
-            # an overflowed frontier is no longer sound — stop and report
-            return ((~st["t_done"].all(dim=1)) & (st["steps"] < steps_cap)
-                    & ~st["overflow"])
-
-        live = cond(st)
-        step = 0
-        while True:
-            if step % check_every == 0 and not bool(live.any()):
-                break
-            new = body(st, live)
-            st = {k: torch.where(live.view((R,) + (1,) * (v.dim() - 1)),
-                                 new[k], v) for k, v in st.items()}
-            live = cond(st)
-            step += 1
-
-        makespan = torch.where(st["t_done"] & task_valid, st["t_finish"],
-                               0.0).amax(dim=1)
+        st = _drive(st, body, _live(steps_cap), check_every)
         if use_slots:
             transferred = st["transferred"]
         else:
             transferred = torch.where(st["f_done"], e_bytes, 0.0).sum(dim=1)
-        overflow = st["overflow"]
-        ok = st["t_done"].all(dim=1) & ~overflow
-        makespan = torch.where(ok, makespan, float("nan"))
-        res = SimResult(makespan, transferred, ok, overflow,
-                        st["n_events"].int(), st["steps"].int())
-        if unbatched:
-            res = SimResult(*(x[0] for x in res))
-        return res
+        return _result(st, task_valid, transferred, unbatched)
+
+    return run
+
+
+def make_dynamic_simulator(spec, n_workers: int, cores,
+                           scheduler: str = "blevel",
+                           netmodel: str = "maxmin", flow_rounds: int = 4,
+                           max_steps: int | None = None, **kwargs):
+    """Deprecated per-graph binding of ``make_bucket_dynamic_simulator``
+    — use ``repro_torch.core.vectorized.api.build(spec, scheduler=...,
+    dynamic=True)``.  Returns ``run(est_durations, est_sizes, msd,
+    decision_delay, bandwidth, seed) -> SimResult`` with ``spec`` bound;
+    ``kwargs`` (``device`` among them) go to the bucket form."""
+    warnings.warn(
+        "make_dynamic_simulator is deprecated; use "
+        "repro_torch.core.vectorized.api.build(spec, scheduler=..., "
+        "dynamic=True)", DeprecationWarning, stacklevel=2)
+    cores_v = _resolve_cores(n_workers, cores)
+    _check_cpus_fit([spec], cores_v, "make_dynamic_simulator")
+    bspec = as_bucketed(spec)
+    brun = make_bucket_dynamic_simulator(n_workers, cores_v, scheduler,
+                                         netmodel, flow_rounds, max_steps,
+                                         **kwargs)
+
+    def run(est_durations, est_sizes, msd=0.0, decision_delay=0.0,
+            bandwidth=100 * 1024 * 1024.0, seed=0):
+        return brun(bspec, est_durations, est_sizes, msd, decision_delay,
+                    bandwidth, seed)
 
     return run
 

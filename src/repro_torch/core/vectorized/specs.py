@@ -172,6 +172,19 @@ def spec_from_numpy(fields: dict, device) -> BucketedGraphSpec:
         for f in _BSPEC_FIELDS})
 
 
+def spec_rows(bspec, R, device) -> BucketedGraphSpec:
+    """The spec as tensors on ``device`` with exactly ``R`` rows (an
+    unbatched spec is repeated)."""
+    if not all(torch.is_tensor(v) and v.device == device
+               for v in bspec.fields().values()):
+        bspec = bspec.to(device)
+    if bspec.B is None:
+        return bspec.map(lambda x: x.unsqueeze(0).expand(R, -1).contiguous())
+    if bspec.B != R:
+        raise ValueError(f"spec has {bspec.B} rows but the call has {R}")
+    return bspec
+
+
 def _pad1(a, n, fill):
     if len(a) == n:
         return np.asarray(a).copy()

@@ -39,7 +39,8 @@
 //   tiles stream through a ring of 2 stages filled by 16-byte cp.async
 //   copies, so the next tile's copy overlaps this tile's math.
 //   Rows of shared memory are XOR-swizzled by 16-byte chunk, so
-//   ldmatrix reads are free of bank conflicts.  Tiles wholly outside the
+//   ldmatrix reads are free of bank conflicts (at D 160 the 64-byte tail
+//   of each row is swizzled within itself; see swz).  Tiles wholly outside the
 //   block's visible key range are never loaded; only tiles that cross
 //   the diagonal, the window's edge or kv_len evaluate the mask.
 //   Online softmax runs on the accumulator fragments in the base-2
@@ -55,7 +56,9 @@
 //   (grid splits x B*Hkv x ceil(group / 8)).  A block takes all query
 //   heads of its kv head (up to 8), so each K/V row is read once for
 //   the group.  Each key is read as 16-byte vectors, one per lane, by
-//   D / 8 neighbouring lanes; no per-element divide.  Each block writes
+//   D / 8 neighbouring lanes, a power of two that tiles the warp (at D
+//   160 the 20 chunks take a whole warp, 12 lanes idle); no per-element
+//   divide.  Each block writes
 //   an unnormalised float32 partial (o, m, l) to scratch that the
 //   wrapper allocates; the combine kernel rescales the splits by
 //   exp(m_s - max m), sums, divides by the floored l and casts.  A split
@@ -301,13 +304,29 @@ struct TcShape {
 
 // Element offset of (row, 16-byte chunk) in a [rows][D] bf16 tile whose
 // chunks are XOR-swizzled within each 128-byte line, so the 8 rows that
-// one ldmatrix phase reads fall on 8 distinct bank groups.
+// one ldmatrix phase reads fall on 8 distinct bank groups.  A row longer
+// than 128 bytes that is not a whole number of lines (D 160: 20 chunks,
+// two lines and a tail of 4) swizzles its whole lines by row & 7 and its
+// tail within itself by row & (tail - 1): an XOR over the whole row would
+// move tail chunks 16-19 to 16-23, into the next row.  The tail's rows
+// lie 320 bytes (a bank-group shift of 4) apart, so its reads are at most
+// 2-way conflicted.
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
   constexpr int kChunks = D / 8;
-  constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;
-  constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
-  return row * D + ((chunk ^ ((row / kRowsPerLine) & kMask)) << 3);
+  if constexpr (kChunks > 8 && kChunks % 8 != 0) {
+    constexpr int kFull = kChunks / 8 * 8;
+    constexpr int kTail = kChunks - kFull;
+    static_assert((kTail & (kTail - 1)) == 0,
+                  "the tail of a row must be a power of two chunks");
+    const int c = chunk < kFull ? chunk ^ (row & 7)
+                                : kFull + ((chunk - kFull) ^ (row & (kTail - 1)));
+    return row * D + (c << 3);
+  } else {
+    constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;
+    constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
+    return row * D + ((chunk ^ ((row / kRowsPerLine) & kMask)) << 3);
+  }
 }
 
 // Copy rows [0, kRowsT) of a strided [rows, D] matrix (row stride rs
@@ -556,6 +575,12 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------- route split
+__host__ __device__ constexpr int pow2_ceil(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
 constexpr int kSplitThreads = 128;
 constexpr int kSplitWarps = kSplitThreads / 32;
 constexpr int kSplitHeads = 8;    // query heads of one kv head per block
@@ -573,7 +598,12 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    float* __restrict__ m_part, float* __restrict__ l_part,
                    Strides qs, Strides ks, Strides vs, int B, int Hq,
                    int Hkv, int kv_len, int lo, int per, float scale) {
-  constexpr int kLpk = D / 8;              // lanes per key, 16 B each
+  // lanes per key, 16 B each: D / 8 rounded up to a power of two, so the
+  // keys of a warp step tile the 32 lanes (D 160: 20 chunks on 32 lanes,
+  // one key per warp step, lanes 20-31 hold zeros and load nothing)
+  constexpr int kChunks = D / 8;
+  constexpr int kLpk = pow2_ceil(kChunks);
+  static_assert(kLpk <= 32, "a key must fit one warp");
   constexpr int kKpw = 32 / kLpk;          // keys per warp step
   constexpr int kSlots = kSplitWarps * kKpw;
   __shared__ float red[kSplitWarps][kSplitHeads][D + 2];
@@ -587,6 +617,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int c = lane % kLpk;               // dims 8c .. 8c + 7
+  const bool c_ok = kChunks == kLpk || c < kChunks;
   const int slot = warp * kKpw + lane / kLpk;
   const int k_begin = lo + split * per;
   const int k_end = min(k_begin + per, kv_len);
@@ -595,7 +626,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < kSplitHeads; ++h) {
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (h < nh)
+    if (h < nh && c_ok)
       raw = __ldg(reinterpret_cast<const uint4*>(
           q + b * qs.b + (h0 + h) * qs.h + c * 8));
     unpack8(raw, qf[h]);
@@ -618,7 +649,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int u = 0; u < kSplitUnroll; ++u) {
       const int key = base + u * kSlots + slot;
       kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (key < k_end) {
+      if (key < k_end && c_ok) {
         kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + key * ks.s));
         vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + key * vs.s));
       }
@@ -671,7 +702,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       m[h] = m_new;
     }
   }
-  if (lane < kLpk) {
+  if (lane < kLpk && c_ok) {
 #pragma unroll
     for (int h = 0; h < kSplitHeads; ++h) {
       if (h >= nh) break;
@@ -820,6 +851,8 @@ bool bad_shape(int B, int Hq, int Hkv, int Sq, int Skv, int kv_len) {
     case 16: { constexpr int kD = 16; return CALL; }   \
     case 32: { constexpr int kD = 32; return CALL; }   \
     case 64: { constexpr int kD = 64; return CALL; }   \
+    case 128: { constexpr int kD = 128; return CALL; } \
+    case 160: { constexpr int kD = 160; return CALL; } \
     case 256: { constexpr int kD = 256; return CALL; } \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
@@ -881,6 +914,14 @@ extern "C" int flash_attention_split_launch(
       break;
     case 64: err = launch_split_d<64>(q, k, v, strides, parts, B, Hq, Hkv,
                                       kv_len, lo, per, splits, scale, s);
+      break;
+    case 128: err = launch_split_d<128>(q, k, v, strides, parts, B, Hq,
+                                        Hkv, kv_len, lo, per, splits, scale,
+                                        s);
+      break;
+    case 160: err = launch_split_d<160>(q, k, v, strides, parts, B, Hq,
+                                        Hkv, kv_len, lo, per, splits, scale,
+                                        s);
       break;
     case 256: err = launch_split_d<256>(q, k, v, strides, parts, B, Hq,
                                         Hkv, kv_len, lo, per, splits, scale,

@@ -46,7 +46,7 @@ from . import ref
 from ._counter import LaunchCounter
 from ._launch import on_device, raw_stream
 
-HEAD_DIMS = (16, 32, 64, 256)
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 ROUTES = ("tc", "split", "f32")
 _DTYPES = (torch.float32, torch.bfloat16)
 

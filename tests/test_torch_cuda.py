@@ -1,9 +1,9 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels (the
-waterfill K1, flash attention K2 on each of its routes, the SSD scan
-K3 whole and each of its three kernels alone) against their plain
-PyTorch versions, their launch counters and
-checks, and the simulator and the LM serving path through the kernels
-against the plain versions.
+waterfill K1, flash attention K2 on each of its routes and head dims,
+the SSD scan K3 whole and each of its three kernels alone) against
+their plain PyTorch versions, their launch counters and
+checks, and the dynamic and static simulators and the LM serving path
+through the kernels against the plain versions.
 They
 are marked ``cuda`` and skip when no card is present; on a card run
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -174,6 +174,32 @@ def test_simulator_through_the_kernel_equals_the_plain_version(dev):
                               getattr(out["torch"], f)), f
 
 
+def test_static_simulator_through_the_kernel_equals_the_plain_version(dev):
+    """The static simulator at W 32 (the warp route's widest shape):
+    rows of random schedules through K1 and through the plain waterfill
+    on the card, bitwise equal in every field."""
+    from repro_torch.core.graphs import make_graph
+    from repro_torch.core.vectorized import build
+    from repro_torch.core.vectorized.specs import encode_graph
+    from repro_torch.kernels import WATERFILL_LAUNCHES
+    spec = encode_graph(make_graph("fastcrossv", seed=0))
+    rng = np.random.default_rng(0)
+    A = rng.integers(0, 32, (16, spec.T)).astype(np.int32)
+    P = rng.uniform(1, 100, (16, spec.T)).astype(np.float32)
+    out, launches = {}, {}
+    for impl in ("auto", "torch"):
+        before = WATERFILL_LAUNCHES.count
+        out[impl] = build(spec, n_workers=32, cores=4, device=dev,
+                          waterfill_impl=impl)(A, P)
+        torch.cuda.synchronize()
+        launches[impl] = WATERFILL_LAUNCHES.count - before
+    assert launches["auto"] > 0 and launches["torch"] == 0
+    assert bool(out["auto"].ok.all())
+    for f in out["auto"]._fields:
+        assert torch.equal(getattr(out["auto"], f),
+                           getattr(out["torch"], f)), f
+
+
 ATTN = [  # B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len
     (2, 25, 5, 64, 80, 64, True, 16, 64),
     (2, 25, 5, 1, 80, 64, True, 16, 70),
@@ -190,6 +216,12 @@ ATTN = [  # B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len
     (4, 25, 5, 1, 1568, 64, True, 0, 30),
     (4, 25, 5, 1, 1568, 64, True, 1024, 1552),
     (1, 12, 1, 1, 300, 256, True, 0, 250),
+    # head dims 128 and 160 on every route (prefill: tc or f32; decode:
+    # split or f32), D 160 also off the tile and with a window
+    (1, 16, 2, 130, 140, 128, True, 0, 135),
+    (2, 16, 2, 1, 300, 128, True, 100, 290),
+    (1, 8, 2, 100, 130, 160, True, 40, 120),
+    (1, 12, 1, 1, 300, 160, True, 0, 250),
 ]
 
 

@@ -31,6 +31,12 @@ runner = make_grid_runner([(g, encode_graph(g))], "greedy", 4, [2, 2, 2, 2],
 res = runner([dict(bandwidth=64 * 1024 * 1024, msd=0.1,
                    decision_delay=0.05, imode="user")])
 assert res.ok.all() and res.makespan.shape == (1, 1, 1)
+from repro_torch.core.vectorized import build
+import numpy as np
+spec = encode_graph(g)
+static = build(spec, n_workers=4, cores=[2, 2, 2, 2], device="cpu")(
+    np.zeros((2, spec.T), np.int32), np.ones(spec.T, np.float32))
+assert static.ok.all() and static.makespan.shape == (2,)
 from repro_torch.configs import smoke_config
 from repro_torch.launch.serve import serve
 out = serve(smoke_config("hymba-1.5b"), batch=1, prompt_len=8, gen=2,
@@ -39,6 +45,9 @@ assert out["tokens"].shape == (1, 2)
 from repro_torch.core import Simulator, make_scheduler, resolve_workers
 from repro_torch.survey import MINI_GRID, dataset_axis, time_reference_twin
 rep = Simulator(g, resolve_workers([2, 2]), make_scheduler("ws")).run()
+assert rep.makespan > 0
+rep = Simulator(g, resolve_workers([2, 2]), make_scheduler(
+    "genetic-vec", population=4, generations=1, device="cpu")).run()
 assert rep.makespan > 0
 reps, _ = time_reference_twin("sipht", "greedy", 2, [4, 4], [{}])
 assert reps[0].makespan > 0
@@ -96,12 +105,17 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     _needs_no_card()
     from repro_torch.core.graphs import random_graph
     from repro_torch.core.vectorized import (build, make_grid_runner,
-                                             make_bucket_dynamic_simulator)
+                                             make_bucket_dynamic_simulator,
+                                             make_bucket_simulator)
     from repro_torch.core.vectorized.specs import encode_graph
     g = random_graph(1, n_tasks=8)
     spec = encode_graph(g)
     with pytest.raises(RuntimeError, match="CUDA"):
         build(spec, n_workers=2, cores=4, scheduler="blevel", dynamic=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(spec, n_workers=2, cores=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_bucket_simulator(2, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_grid_runner([(g, spec)], "blevel", 2, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -187,8 +201,8 @@ def test_options_not_ported_raise():
     g = random_graph(2, n_tasks=8)
     spec = encode_graph(g)
     kw = dict(n_workers=2, cores=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="static simulator"):
-        build(spec, **kw)
+    with pytest.raises(NotImplementedError, match="escape hatch"):
+        build(spec, flow_slots=False, **kw)
     with pytest.raises(NotImplementedError, match="engine"):
         build(spec, scheduler="blevel", dynamic=True, engine="sharded", **kw)
     with pytest.raises(NotImplementedError, match="engine"):

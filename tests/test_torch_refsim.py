@@ -1,15 +1,17 @@
 """The port's reference event loop (``repro_torch.core.simulator`` with
-its workers, network models and 18 schedulers) against the reference
+its workers, network models and schedulers) against the reference
 package's, on the CPU: ``fastcrossv`` and ``montage-77-s0`` at 8x4,
-every scheduler name but ``genetic-vec``, both netmodels, imodes
-``exact`` and ``user``, msd 0 and 0.1 (decision delay 0.05).
+every scheduler name but ``genetic-vec`` (its own file,
+``test_torch_genetic.py``: it scores on the static simulator), both
+netmodels, imodes ``exact`` and ``user``, msd 0 and 0.1 (decision delay
+0.05).
 
 Both sides run the same Python, so every reported field is equal, not
 close: makespan, bytes and count of transfers, scheduler invocations and
-each task's worker, start and finish.  Also: ``genetic-vec`` raises,
-the one ``parse_cluster`` of the port equals the reference's on every
-grid cluster name, and the ``random-det`` counter hash equals the port's
-in-loop ``random`` scheduler's."""
+each task's worker, start and finish.  Also: the one ``parse_cluster``
+of the port equals the reference's on every grid cluster name, and the
+``random-det`` counter hash equals the port's in-loop ``random``
+scheduler's."""
 import numpy as np
 import pytest
 
@@ -63,11 +65,6 @@ def test_simulator_equals_reference(gname, sched, netmodel, imode, msd):
     got = _run(P, p_make_graph, gname, sched, netmodel, imode, msd)
     assert got == want
     assert len(got["records"]) == _graph(p_make_graph, gname).task_count
-
-
-def test_genetic_vec_raises():
-    with pytest.raises(NotImplementedError, match="Queue A items 4-5"):
-        P.make_scheduler("genetic-vec")
 
 
 def test_parse_cluster_is_one_function_and_equals_reference():
