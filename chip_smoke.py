@@ -62,30 +62,43 @@ printing one JSON line:
    recorded one within rtol 1e-5 (``FULL_WIDTH_AGREEMENT``; crossvx
    under blevel, where the reference's frontier overflows, is printed
    and not compared).
-9. ``static_golden``: the static simulator against the reference's
+9. ``survey_engine``: the same T512 x 32x4 group (24 points, blevel and
+   greedy, maxmin) through the grid engine: all 96 rows in one
+   simulator call with every step issued from the host (``vmap``
+   eager) and with the event step replayed from a CUDA graph (``vmap``
+   graph), and the rows streamed onto the card in 3 chunks of 32
+   (``sharded`` graph, ``ShardedGridRunner``), in turns (a, b, c, c, b,
+   a); then one eager streamed run.  Every run bitwise equal in every
+   field, each graph run launching K1 as often as the eager run of the
+   same calls (all ``warp``), one capture per simulator call (3 for
+   ``sharded``).  Prints events/s and wall ms per loop step of each,
+   and the device busy and idle share of one more blevel graph run
+   under the profiler.
+10. ``static_golden``: the static simulator against the reference's
    recorded ``BENCH_PR7.json`` static rows (merge_triplets at 8x4,
    t2048_layered at 16x4): each graph scheduled by the port's
    ``build(..., scheduler="blevel")`` from exact estimates, padded to
    its bucket and simulated by ``build(...)`` with no scheduler through
    K1; events, steps and makespan exactly, ``transferred`` within rtol
    1e-5.
-10. ``static_full_width``: the T512 bucket on 32x4 (W 32, 128 flow
+11. ``static_full_width``: the T512 bucket on 32x4 (W 32, 128 flow
     slots) through the static simulator: each graph x the five static
     schedules (placed on the card) x 100 and 512 MiB/s, 40 rows in one
     call with full-coverage frontier caps, through the plain waterfill
-    and K1 in turns (plain, kernel, kernel, plain): every run bitwise
-    equal, and ``ok``, events, steps and makespan exactly the values
-    the reference package recorded on a CPU (``STATIC_FULL_WIDTH``,
-    ``tools/record_static_reference.py``); events/s of both, and one
-    more kernel run under the profiler.
-11. ``genetic_vec``: the reference event loop on fastcrossv at 32x4 with
+    and K1 in turns (plain, kernel, kernel, plain), then one kernel run
+    with the step issued eagerly: every run bitwise equal, K1 launched
+    as often eagerly as from the graph, and ``ok``, events, steps and
+    makespan exactly the values the reference package recorded on a
+    CPU (``STATIC_FULL_WIDTH``, ``tools/record_static_reference.py``);
+    events/s of each, and one more kernel run under the profiler.
+12. ``genetic_vec``: the reference event loop on fastcrossv at 32x4 with
     the port's ``make_scheduler("genetic-vec", seed=0)`` at its defaults
     (population 32, 16 generations: 17 batched calls of 32 rows through
     K1): makespan and every task's worker equal to the reference's
     recorded run (``GENETIC_VEC``); then 2 generations on the plain
     waterfill and on K1, both equal to the reference's 2-generation
     run; wall time per generation.
-12. ``kernel_flash_attention``: K2 against its plain version on the card
+13. ``kernel_flash_attention``: K2 against its plain version on the card
    (float32 and bfloat16) at Hymba's prefill shape (B 4, Hq 25, Hkv 5,
    Sq 1536, Skv 1568, kv_len 1536, window 1024 and 0, the KV cache's
    strided layout), its decode shape (Sq 1), gemma3's head dim 256, an
@@ -108,7 +121,7 @@ printing one JSON line:
    replayed from a CUDA graph, and the eager times stand beside them
    (``eager_ms``, ``library_eager_ms``).  Hymba's four cases and the
    four D 128/160 cases are timed.
-13. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
+14. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
     ``ssd_state_pass``, ``ssd_chunk_scan``) each alone against its plain
     piece (``ref.ssd_chunk_states``, ``ssd_pass_states``,
     ``ssd_chunk_scan``), and the whole call against ``ssd_chunked`` and
@@ -118,7 +131,7 @@ printing one JSON line:
     overflows above the diagonal, Q/P/N off a multiple of 4, the smoke
     serve's L 8); fails above atol/rtol 1e-4.  Times the call and each
     phase alone with CUDA events around eager calls.
-14. ``serve_hymba``: ``repro_torch.launch.serve`` at full width in
+15. ``serve_hymba``: ``repro_torch.launch.serve`` at full width in
     bfloat16 (batch 4, prompt 1536, gen 32) through the kernels, with the
     launches of K2 (32 layers x 33 forward passes) and K3 (32); then the
     same prompt in float32, prefill and 4 teacher-forced decode steps,
@@ -127,9 +140,15 @@ printing one JSON line:
     are also counted by route (bf16: ``tc`` at prefill, ``split`` at
     decode; float32: ``f32``), and the prefill profile gives K2's and
     K3's device time and share.
-15. ``kernels``: each kernel with its launches on the main paths (K1's
+16. ``kernels``: each kernel with its launches on the main paths (K1's
     summed over its path phases; K1 and K2 also by route); needs every
     kernel's check phase and the phase of its path in the same run.
+
+Every simulator phase but ``survey_engine``'s eager turns, the eager
+turn of ``static_full_width`` and the input recording of
+``kernel_waterfill`` runs with the default ``step_graph="auto"``: each
+simulator call replays its event step from a CUDA graph, and the
+mini-grid phases require one capture per simulator call.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}``.
@@ -152,7 +171,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 PHASES = ("env", "build", "kernel_waterfill", "golden", "survey_mini",
           "survey_agreement", "survey_dataset", "survey_full_width",
-          "static_golden", "static_full_width", "genetic_vec",
+          "survey_engine", "static_golden", "static_full_width", "genetic_vec",
           "kernel_flash_attention", "kernel_ssd", "serve_hymba", "kernels")
 
 # the recorded dynamic rows of BENCH_PR7.json (reference package, CPU)
@@ -522,7 +541,7 @@ def _full_width_group():
     return encoded, grp, cores, grid_points(FULL_GRID)
 
 
-def _full_width_runner(sched, impl):
+def _full_width_runner(sched, impl, **opts):
     from repro_torch.core.vectorized import make_grid_runner
     from repro_torch.survey import full_frontier_caps
     encoded, grp, cores, _ = _full_width_group()
@@ -530,13 +549,15 @@ def _full_width_runner(sched, impl):
         [encoded[n] for n in grp.names], sched, 32, cores,
         netmodel="maxmin", shape=grp.shape, batch=grp.batch,
         device="cuda", waterfill_impl=impl,
-        frontier_caps=full_frontier_caps(grp.shape))
+        frontier_caps=full_frontier_caps(grp.shape), **opts)
 
 
 def _record_path_inputs(sched="blevel"):
     """The inputs of every K1 call of one run of the survey_full_width
     cell (``sched`` on maxmin), copied by a hook on the kernel wrapper
-    that this script installs for the run and removes after it."""
+    that this script installs for the run and removes after it.  The run
+    is eager: a hook inside a captured step would copy once, at capture,
+    when the step's inputs do not exist yet."""
     from repro_torch.kernels import waterfill as wk
     calls = []
     wrapped = wk.waterfill
@@ -548,7 +569,8 @@ def _record_path_inputs(sched="blevel"):
 
     wk.waterfill = hook
     try:
-        _full_width_runner(sched, "auto")(_full_width_group()[3])
+        _full_width_runner(sched, "auto", step_graph="eager")(
+            _full_width_group()[3])
     finally:
         wk.waterfill = wrapped
     return calls
@@ -787,8 +809,10 @@ def phase_survey_mini():
     emit("survey_mini", rows=len(rows), sims=stats["sims"],
          groups=stats["groups"], events=stats["events"],
          wall_s=stats["wall_s"], events_per_s=stats["events_per_s"],
-         all_ok=stats["all_ok"], waterfill_launches=WATERFILL_LAUNCHES.count)
-    if not stats["all_ok"] or len(rows) != 512:
+         all_ok=stats["all_ok"], waterfill_launches=WATERFILL_LAUNCHES.count,
+         sim_calls=stats["sim_calls"], graph_captures=stats["captures"])
+    if (not stats["all_ok"] or len(rows) != 512
+            or stats["captures"] != stats["sim_calls"]):
         raise AssertionError(f"mini survey failed: {len(rows)} rows, "
                              f"all_ok={stats['all_ok']}")
 
@@ -833,12 +857,14 @@ def _agreement_survey(phase, dataset, want):
                 bucket_cold_s=per[0]["bucket_cold_s"] if per else None,
                 pergraph_cold_s=per[0]["pergraph_cold_s"] if per else None,
                 agreement_rows=len(plain), pergraph_rows=len(per),
+                sim_calls=stats["sim_calls"], graph_captures=stats["captures"],
                 ratios=ratios, worst_rel_err=worst,
                 waterfill_launches=launches,
                 waterfill_launch_routes=routes, card=CARD)
     good = (stats["all_ok"] and len(plain) == len(want) and len(per) == 1
             and {(r["graph"], r["scheduler"]) for r in ratios} == set(want)
-            and worst <= RTOL and launches > 0)
+            and worst <= RTOL and launches > 0
+            and stats["captures"] == stats["sim_calls"] == stats["groups"])
     return rows, stats, line, good
 
 
@@ -977,6 +1003,107 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
     return main_path
 
 
+ENGINE_TURNS = (("vmap", "eager"), ("vmap", "graph"), ("sharded", "graph"))
+
+
+def _engine_turn(runner, points):
+    """One timed call of ``runner``: ``(result, wall s, K1 launches, K1
+    routes, capture_counter)``, K1's count zeroed just before."""
+    import torch
+    from repro_torch.core.vectorized import capture_counter
+    from repro_torch.kernels import WATERFILL_LAUNCHES
+    WATERFILL_LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with capture_counter() as cc:
+        r = runner(points)
+    torch.cuda.synchronize()
+    return (r, time.perf_counter() - t0, WATERFILL_LAUNCHES.count,
+            dict(WATERFILL_LAUNCHES.routes), cc)
+
+
+def phase_survey_engine(schedulers=("blevel", "greedy"), stream_rows=32):
+    """The survey_full_width group through the grid engine: one call of
+    all rows (``vmap``) eager and from a CUDA graph of the event step,
+    and the rows streamed in chunks of ``stream_rows`` (``sharded``)
+    from the graph, in turns (a, b, c, c, b, a) inside this call; then
+    one eager streamed run for its K1 count.  Fails unless every run is
+    bitwise equal, each graph run launches K1 as often as the eager run
+    of the same calls (all ``warp``), and each graph run captures once
+    per simulator call (chunks for ``sharded``)."""
+    import numpy as np
+    _, grp, _, points = _full_width_group()
+    out, k1 = [], [0, {}]
+    for sched in schedulers:
+        runners = {(eng, sg): _full_width_runner(
+            sched, "auto", step_graph=sg, engine=eng,
+            stream_rows=stream_rows if eng == "sharded" else None)
+            for eng, sg in ENGINE_TURNS + (("sharded", "eager"),)}
+        turns = {key: [] for key in runners}
+        for key in ENGINE_TURNS + ENGINE_TURNS[::-1]:
+            turns[key].append(_engine_turn(runners[key], points))
+        # not timed in turns: the eager streamed run's K1 count
+        turns[("sharded", "eager")].append(
+            _engine_turn(runners[("sharded", "eager")], points))
+        ref = turns[("vmap", "eager")][0][0]
+        rows = int(ref.ok.size)
+        chunk, padded = runners[("sharded", "graph")]._row_chunks(rows)
+        chunks = padded // chunk
+        ev = int(ref.n_events.sum())
+        bitwise = all(np.array_equal(getattr(t[0], f), getattr(ref, f),
+                                     equal_nan=True)
+                      for ts in turns.values() for t in ts
+                      for f in ref._fields)
+        row = dict(scheduler=sched, bucket=grp.label, cluster="32x4",
+                   points=len(points), rows=rows, all_ok=bool(ref.ok.all()),
+                   events=ev, max_steps=int(ref.n_steps.max()),
+                   stream_rows=stream_rows, chunks=chunks,
+                   order="vmap-eager,vmap-graph,sharded-graph,sharded-graph,"
+                         "vmap-graph,vmap-eager", bitwise=bitwise, card=CARD)
+        good = row["all_ok"] and bitwise and chunks >= 3
+        for (eng, sg), ts in turns.items():
+            launches = [t[2] for t in ts]
+            # loop steps of these calls: step 0 of each call + the replays
+            # of the graph turn of the same engine (the same loops)
+            g = turns[(eng, "graph")][0][4]
+            steps = g.calls + g.replays
+            row[f"{eng}_{sg}"] = dict(
+                wall_s=[t[1] for t in ts],
+                events_per_s=[ev / t[1] for t in ts],
+                wall_ms_per_step=[t[1] * 1e3 / steps for t in ts],
+                loop_steps=steps, k1_launches=launches,
+                k1_routes=[t[3] for t in ts],
+                sim_calls=[t[4].calls for t in ts],
+                captures=[t[4].captures for t in ts],
+                replays=[t[4].replays for t in ts])
+            calls = chunks if eng == "sharded" else 1
+            eager_launches = turns[(eng, "eager")][0][2]
+            good = (good and all(t[4].calls == calls for t in ts)
+                    and all(t[4].captures == (calls if sg == "graph" else 0)
+                            for t in ts)
+                    and all(n == eager_launches and n == steps for n
+                            in launches)
+                    and all(t[3]["warp"] == t[2] for t in ts))
+        sg = row["sharded_graph"]
+        k1[0] += sg["k1_launches"][0]
+        for r, n in sg["k1_routes"][0].items():
+            k1[1][r] = k1[1].get(r, 0) + n
+        if sched == "blevel":
+            # one more graph run of all rows, outside the turns, under
+            # the profiler: the card's busy and idle share with the step
+            # replayed from a graph
+            row["profile"] = _device_profile(
+                lambda: runners[("vmap", "graph")](points))
+        out.append(row)
+        if not good:
+            emit("survey_engine", rows=out, ok=False)
+            raise AssertionError(f"survey_engine: {sched} disagrees between "
+                                 f"engines or step modes: {row}")
+    emit("survey_engine", rows=out, ok=True, card=CARD,
+         waterfill_launches=k1[0], waterfill_launch_routes=k1[1])
+    return k1[0], k1[1]
+
+
 # ------------------------------------------- the static simulator, genetic-vec
 def _static_golden_row(name, graph):
     """One ``BENCH_PR7.json`` static row: blevel from the exact
@@ -1093,9 +1220,14 @@ def phase_static_full_width():
     runs = {impl: build(None, n_workers=32, cores=cores[0],
                         frontier_caps=(E, T), device="cuda",
                         waterfill_impl=impl) for impl in ("auto", "torch")}
-    res = {"auto": [], "torch": []}
-    # in turns (plain, kernel, kernel, plain) on one card
-    for impl in ("torch", "auto", "auto", "torch"):
+    # the same kernel path with every step issued from the host
+    runs["eager"] = build(None, n_workers=32, cores=cores[0],
+                          frontier_caps=(E, T), device="cuda",
+                          step_graph="eager")
+    res = {"auto": [], "torch": [], "eager": []}
+    # in turns (plain, kernel, kernel, plain) on one card, both from the
+    # step's CUDA graph; then one eager kernel turn
+    for impl in ("torch", "auto", "auto", "torch", "eager"):
         WATERFILL_LAUNCHES.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1140,6 +1272,9 @@ def phase_static_full_width():
                 kernel_launches=[x[2] for x in res["auto"]],
                 kernel_launch_routes=[x[3] for x in res["auto"]],
                 plain_launches=[x[2] for x in res["torch"]],
+                eager_wall_s=res["eager"][0][1],
+                eager_events_per_s=ev / res["eager"][0][1],
+                eager_launches=res["eager"][0][2],
                 kernel_plain_bitwise=bitwise,
                 reference_mismatches=mismatches, card=CARD)
     # one more kernel run, outside the timed turns, under the profiler:
@@ -1149,7 +1284,8 @@ def phase_static_full_width():
     good = (line["all_ok"] and bitwise and not mismatches
             and len(keys) == len(STATIC_FULL_WIDTH)
             and all(n == 0 for n in line["plain_launches"])
-            and la > 0 and routes["warp"] == la)
+            and la > 0 and routes["warp"] == la
+            and all(x[2] == la for x in res["auto"] + res["eager"]))
     emit("static_full_width", **line, ok=good)
     if not good:
         raise AssertionError("static_full_width: the rows disagree with the "
@@ -1825,6 +1961,8 @@ def main(argv=None):
     if "survey_full_width" in phases:
         main_path = phase_survey_full_width()
         k1.append((main_path["count"], main_path["routes"]))
+    if "survey_engine" in phases:
+        k1.append(phase_survey_engine())
     if "static_golden" in phases:
         k1.append(phase_static_golden())
     if "static_full_width" in phases:

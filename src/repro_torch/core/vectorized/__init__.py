@@ -1,8 +1,11 @@
 """The port's vectorized ESTEE simulator: padded graph specs, in-loop
-schedulers, the batched static and dynamic simulators and the grid
-runner.  The names are the reference package's (``__all__`` of
-``repro.core.vectorized``) but for its XLA-only ones: ``abstract_spec``,
-the jit trace counters and the sharded engine (``engine.py``)."""
+schedulers, the batched static and dynamic simulators, the grid runner
+and the grid engine (``engine.py``: ``ShardedGridRunner``,
+``DoubleBufferQueue``).  The names are the reference package's
+(``__all__`` of ``repro.core.vectorized``) but for its XLA-only ones:
+``abstract_spec``, the jit trace counters and the compile caches
+(``engine.py`` says why); ``capture_counter`` counts the CUDA graphs of
+the event step instead."""
 from .specs import (GraphSpec, BucketedGraphSpec, BucketGroup, encode_graph,
                     as_bucketed, bucket_shape, pad_spec, pad_specs, pad_to,
                     round_up, spec_from_numpy, stack_specs,
@@ -13,6 +16,7 @@ from .sim import (make_simulator, simulate_batch, make_dynamic_simulator,
                   make_bucket_dynamic_simulator, DynamicGridRunner,
                   BucketedGridRunner, DOWNLOAD_SLOTS, PAIR_SLOTS, SimResult)
 from .api import SimConfig, build, build_for_graph, make_grid_runner
+from .engine import ShardedGridRunner, DoubleBufferQueue, capture_counter
 from .scheduling import (VEC_SCHEDULERS, make_vec_scheduler,
                          make_bucket_scheduler, bucket_ready_tasks,
                          frontier_mask, make_static_blevel_scheduler,
@@ -36,6 +40,7 @@ __all__ = ["GraphSpec", "BucketedGraphSpec", "BucketGroup", "encode_graph",
            "DynamicGridRunner", "BucketedGridRunner",
            "DOWNLOAD_SLOTS", "PAIR_SLOTS", "SimResult",
            "SimConfig", "build", "build_for_graph", "make_grid_runner",
+           "ShardedGridRunner", "DoubleBufferQueue", "capture_counter",
            "VEC_SCHEDULERS", "make_vec_scheduler", "make_bucket_scheduler",
            "bucket_ready_tasks", "frontier_mask",
            "make_static_blevel_scheduler", "make_static_tlevel_scheduler",

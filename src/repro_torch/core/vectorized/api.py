@@ -19,9 +19,12 @@ for.  ``spec=None`` returns the late-bound bucket form (the spec becomes
 the first argument).  Arguments may carry a leading row axis — one row
 per simulation — in place of the reference's ``jax.vmap``.
 
-Not ported yet: the sharded grid engine (``engine="sharded"`` raises
-``NotImplementedError``; its ``devices``, ``stream_rows`` and
-``cache_dir`` options are unknown here and raise ``TypeError``).
+The engine block rides ``SimConfig`` as in the reference, and only
+``make_grid_runner`` dispatches on it: ``engine="sharded"`` streams the
+grid's rows in chunks of ``stream_rows`` through ``engine.
+ShardedGridRunner`` on one card (``devices`` above 1 raises).
+``cache_dir`` has no counterpart here and raises (``engine.py`` says
+why).
 """
 from __future__ import annotations
 
@@ -41,9 +44,13 @@ class SimConfig:
     arguments of a bound dynamic run.  ``waterfill_impl`` is ``"auto"``
     (kernel on the card, plain version on the CPU), ``"torch"`` or
     ``"cuda"``; ``check_every`` is how many simulator steps pass between
-    the host's checks that a row is still live.  ``engine`` is
-    ``"vmap"`` (one batched call); ``"sharded"`` is not ported and
-    raises."""
+    the host's checks that a row is still live; ``step_graph`` is
+    ``"auto"`` (each simulator call's event step replayed from a CUDA
+    graph on the card, eager on the CPU), ``"graph"`` (raises on the
+    CPU) or ``"eager"``.  The engine block: ``engine`` is ``"vmap"``
+    (one batched call) or ``"sharded"`` (``stream_rows`` rows a call,
+    streamed through a double-buffered queue onto ``devices`` cards:
+    one, the only count ported); ``cache_dir`` raises."""
 
     flow_slots: bool | None = None
     frontier: bool | None = None
@@ -56,7 +63,11 @@ class SimConfig:
     imode: str = "exact"
     seed: int = 0
     engine: str = "vmap"
+    devices: int | None = None
+    stream_rows: int | None = None
+    cache_dir: str | None = None
     check_every: int = 16
+    step_graph: str = "auto"
 
     def replace(self, **kwargs) -> "SimConfig":
         return dataclasses.replace(self, **kwargs)
@@ -74,10 +85,9 @@ def _merge_config(config, opts) -> SimConfig:
     if cfg.engine not in ("vmap", "sharded"):
         raise TypeError(f"unknown engine {cfg.engine!r}; SimConfig.engine "
                         f"is 'vmap' or 'sharded'")
-    if cfg.engine == "sharded":
-        raise NotImplementedError(
-            "the sharded grid engine (engine='sharded') is not ported to "
-            "repro_torch yet (ROADMAP: port engine.py)")
+    if cfg.cache_dir is not None:
+        from .engine import NO_CACHE_DIR
+        raise NotImplementedError(NO_CACHE_DIR)
     return cfg
 
 
@@ -124,7 +134,7 @@ def build(spec=None, *, n_workers: int, cores=None, scheduler=None,
             max_cores=max_cores, flow_slots=cfg.flow_slots,
             frontier=cfg.frontier, frontier_caps=cfg.frontier_caps,
             waterfill_impl=cfg.waterfill_impl, device=dev,
-            check_every=cfg.check_every)
+            check_every=cfg.check_every, step_graph=cfg.step_graph)
         if bspec is None:
             return brun
         return lambda assignment, priority, durations=None, sizes=None, \
@@ -147,7 +157,7 @@ def build(spec=None, *, n_workers: int, cores=None, scheduler=None,
         flow_slots=cfg.flow_slots, frontier=cfg.frontier,
         frontier_caps=cfg.frontier_caps,
         waterfill_impl=cfg.waterfill_impl, device=dev,
-        check_every=cfg.check_every)
+        check_every=cfg.check_every, step_graph=cfg.step_graph)
     if bspec is None:
         return brun
 
@@ -164,22 +174,38 @@ def make_grid_runner(entries, scheduler, n_workers, cores, *,
                      shape=None, batch=None, est_cache=None,
                      config: SimConfig | None = None, device="cuda",
                      **opts):
-    """Front door over the bucket grid runner: positional arguments
-    match ``BucketedGridRunner``; options ride the same config/override
-    mechanics as ``build``.  Only ``engine="vmap"`` is ported — one
-    batched call over all ``[K, B, N]`` rows."""
+    """Engine-dispatching front door over the bucket grid runners:
+    positional arguments match ``BucketedGridRunner``; options ride the
+    same config/override mechanics as ``build``::
+
+        runner = make_grid_runner(entries, "blevel", 8, cores2d,
+                                  engine="sharded", stream_rows=64)
+        res = runner(points)               # SimResult[K, B, N]
+
+    ``engine="vmap"`` (default) returns a ``BucketedGridRunner`` (one
+    simulator call over all ``[K, B, N]`` rows); ``engine="sharded"`` a
+    ``ShardedGridRunner`` (one call per chunk of ``stream_rows`` rows,
+    the same results bit for bit)."""
     dev = resolve_device(device)
     cfg = _merge_config(config, opts)
     if cfg.flow_slots is False or cfg.frontier is False:
         raise NotImplementedError(
             "flow_slots=False / frontier=False are not ported to "
             "repro_torch")
-    return _sim.BucketedGridRunner(
-        entries, scheduler, n_workers, cores, netmodel=netmodel,
+    kwargs = dict(
+        netmodel=netmodel,
         max_steps=cfg.max_steps if max_steps is None else max_steps,
         shape=shape, batch=batch, est_cache=est_cache, device=dev,
         waterfill_impl=cfg.waterfill_impl, flow_rounds=cfg.flow_rounds,
-        frontier_caps=cfg.frontier_caps, check_every=cfg.check_every)
+        frontier_caps=cfg.frontier_caps, check_every=cfg.check_every,
+        step_graph=cfg.step_graph)
+    if cfg.engine == "vmap":
+        return _sim.BucketedGridRunner(entries, scheduler, n_workers, cores,
+                                       **kwargs)
+    from .engine import ShardedGridRunner
+    return ShardedGridRunner(entries, scheduler, n_workers, cores,
+                             devices=cfg.devices,
+                             stream_rows=cfg.stream_rows, **kwargs)
 
 
 def build_for_graph(graph, **kwargs):

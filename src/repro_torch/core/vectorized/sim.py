@@ -14,6 +14,14 @@ never branched on, which is exactly what vmap of ``while_loop`` does, so
 ``n_steps`` and ``n_events`` per row equal the reference's.  The host
 reads ``live.any()`` every ``check_every`` steps, not per event.
 
+A step writes into the carry's own tensors (``_step_into``), so the
+carry keeps its addresses and, on a card, each simulator call captures
+one step in a CUDA graph and replays it for every later step
+(``step_graph``; the counterpart of the reference's one compiled
+program): once captured, a step costs the host one launch.  ``greedy``
+places tasks in a loop whose length the host reads, so its placement
+prologue runs eagerly before each replay.
+
 Semantics are the reference's default configuration (flow slots on for
 ``maxmin``, none for ``simple``, the ready frontiers on):
 
@@ -140,16 +148,18 @@ def _resolve_waterfill_impl(waterfill_impl: str) -> str:
     return waterfill_impl
 
 
-def _make_waterfill(waterfill_impl: str, device):
+def _make_waterfill(waterfill_impl: str, device, graph: bool = False):
     """The batched max-min solver ``wf(src, dst, active, caps) ->
     rates``.  ``"auto"`` routes through the kernel wrapper, which
     launches the CUDA kernel for tensors on the card and runs the plain
     version for CPU tensors; ``"torch"`` is the plain version on any
-    device; ``"cuda"`` requires the kernel (raises for a CPU device)."""
+    device; ``"cuda"`` requires the kernel (raises for a CPU device).
+    In a step run from a CUDA graph (``graph``) the plain version cannot
+    read the host, so it runs all of its rounds."""
     impl = _resolve_waterfill_impl(waterfill_impl)
     if impl == "torch":
         return lambda src, dst, active, caps: waterfill_plain(
-            src, dst, active, caps, caps)
+            src, dst, active, caps, caps, sync=not graph)
     if impl == "cuda" and torch.device(device).type != "cuda":
         raise ValueError(f"waterfill_impl='cuda' needs a CUDA device, the "
                          f"simulator runs on {device}")
@@ -371,23 +381,107 @@ def _advance(st, rates, active, rem, granule, next_extra=None):
     return running, now, rem, done_now, t_newly
 
 
-def _drive(st, body, cond, check_every):
-    """Advance every row until none is live: ``body(st, live)`` is one
-    event step of all rows, and a row that is no longer live is frozen
-    with ``torch.where`` (what vmap of ``while_loop`` does), so its
-    ``n_steps`` and ``n_events`` equal the reference's.  The host reads
-    "any row live" every ``check_every`` steps."""
-    live = cond(st)
+def _resolve_step_graph(step_graph: str, device) -> bool:
+    """Whether the event step runs from a CUDA graph: ``"auto"`` on a
+    card, never on the CPU; ``"graph"`` requires a card (raises on the
+    CPU); ``"eager"`` issues every op of every step from the host."""
+    if step_graph not in ("auto", "graph", "eager"):
+        raise ValueError(f"step_graph must be 'auto'|'graph'|'eager', got "
+                         f"{step_graph!r}")
+    on_card = torch.device(device).type == "cuda"
+    if step_graph == "graph" and not on_card:
+        raise ValueError(f"step_graph='graph' needs a CUDA device, the "
+                         f"simulator runs on {device}")
+    return step_graph == "graph" or (step_graph == "auto" and on_card)
+
+
+# process-wide odometers of the event loops: ``calls`` (simulator calls),
+# ``captures`` (one per call whose step ran from a CUDA graph) and
+# ``replays``; ``engine.capture_counter`` reads them as scoped deltas
+GRAPH_EVENTS = {"calls": 0, "captures": 0, "replays": 0}
+
+
+def _capture(step, device):
+    """Record one call of ``step`` into a CUDA graph on ``device``
+    (``torch.cuda.graph``: a side stream and a private memory pool) and
+    return ``(replay, free)``; ``free`` releases the graph and its pool.
+    The capture runs nothing, so the K1 launches it recorded are taken
+    off ``LAUNCHES`` and every replay adds them back: a graph run counts
+    the launches an eager run of the same call counts.  A capture that
+    fails raises."""
+    from ...kernels._launch import on_device
+    from ...kernels.waterfill import LAUNCHES
+    mark = LAUNCHES.mark()
+    graph = torch.cuda.CUDAGraph()
+    with on_device(device), torch.cuda.graph(graph):
+        step()
+    recorded = LAUNCHES.take_since(mark)
+    GRAPH_EVENTS["captures"] += 1
+
+    def replay():
+        with on_device(device):
+            graph.replay()
+        LAUNCHES.add_recorded(recorded)
+        GRAPH_EVENTS["replays"] += 1
+
+    return replay, graph.reset
+
+
+def _step_into(st, live, fn, cond=None):
+    """One step written into the carry: ``fn(st, live)`` gives the new
+    values, and each changed entry is frozen where a row is not live
+    (what vmap of ``while_loop`` does) and written into the carry's own
+    tensor, so the carry keeps its addresses from step to step (a CUDA
+    graph replays on them).  With ``cond`` the ``live`` mask is then
+    recomputed in place."""
+    new = fn(st, live)
     R = live.shape[0]
-    step = 0
-    while True:
-        if step % check_every == 0 and not bool(live.any()):
-            break
-        new = body(st, live)
-        st = {k: torch.where(live.view((R,) + (1,) * (v.dim() - 1)),
-                             new[k], v) for k, v in st.items()}
-        live = cond(st)
-        step += 1
+    for k, v in st.items():
+        if new[k] is not v:
+            torch.where(live.view((R,) + (1,) * (v.dim() - 1)), new[k], v,
+                        out=v)
+    if cond is not None:
+        live.copy_(cond(st))
+
+
+def _drive(st, body, cond, check_every, graph=False, device=None,
+           prologue=None):
+    """Advance every row until none is live and return the carry.
+    ``body(st, live)`` is one event step of all rows, run by
+    ``_step_into``: a row that is no longer live is frozen, so its
+    ``n_steps`` and ``n_events`` equal the reference's.  The host reads
+    "any row live" every ``check_every`` steps.
+
+    ``graph=False`` runs every step eagerly.  With ``graph=True`` step 0
+    runs eagerly (a real step, and the warm-up that loads every kernel
+    before capture); then one step is captured on the carry into a CUDA
+    graph on ``device`` and replayed for every later step, and the graph
+    and its pool are freed when the loop ends.  ``prologue(st, live)``,
+    when given, is a first part of the step that reads the host (greedy's
+    placement): it runs eagerly into the carry before each replay, and
+    ``body`` is then the rest of the step (eagerly the two run as one)."""
+    full = body if prologue is None \
+        else (lambda st, live: body(prologue(st, live), live))
+    st = {k: v.clone() for k, v in st.items()}   # the carry's own tensors
+    live = cond(st)
+    GRAPH_EVENTS["calls"] += 1
+    replay = free = None
+    try:
+        step = 0
+        while step % check_every or bool(live.any()):
+            if not graph or step == 0:
+                _step_into(st, live, full, cond)
+            else:
+                if prologue is not None:
+                    _step_into(st, live, prologue)
+                if replay is None:
+                    replay, free = _capture(
+                        lambda: _step_into(st, live, body, cond), device)
+                replay()
+            step += 1
+    finally:
+        if free is not None:
+            free()
     return st
 
 
@@ -437,7 +531,7 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
                           *, max_cores: int | None = None, flow_slots=None,
                           frontier=None, frontier_caps=None,
                           waterfill_impl: str = "auto", device="cuda",
-                          check_every: int = 16):
+                          check_every: int = 16, step_graph: str = "auto"):
     """Returns ``run(bspec, assignment, priority, durations, sizes,
     bandwidth, cores) -> SimResult``: the static simulator, a batched
     mirror of the reference's ``make_bucket_simulator``.  The schedule
@@ -456,16 +550,18 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
     The configuration is the reference's default: the ready frontiers
     on, flow slots on for ``maxmin`` and none for ``simple``.
     ``flow_slots=False`` and ``frontier=False`` (its per-edge escape
-    hatches) are not ported and raise.  ``device``, ``check_every`` and
-    ``waterfill_impl`` are as for ``make_bucket_dynamic_simulator``."""
+    hatches) are not ported and raise.  ``device``, ``check_every``,
+    ``waterfill_impl`` and ``step_graph`` are as for
+    ``make_bucket_dynamic_simulator``; the whole step is captured."""
     _check_netmodel_options(netmodel, flow_slots, check_every)
     _resolve_frontier(frontier)
     dev = resolve_device(device)
+    graph = _resolve_step_graph(step_graph, dev)
     W = n_workers
     cores_default = _resolve_cores(n_workers, cores)
     max_cores = _max_cores(cores_default, max_cores)
     simple = netmodel == "simple"
-    wf = None if simple else _make_waterfill(waterfill_impl, dev)
+    wf = None if simple else _make_waterfill(waterfill_impl, dev, graph)
     S = W * DOWNLOAD_SLOTS
 
     def run(bspec, assignment, priority, durations=None, sizes=None,
@@ -627,7 +723,7 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
             st["overflow"] = st["overflow"] | ov
             return st
 
-        st = _drive(st, body, _live(steps_cap), check_every)
+        st = _drive(st, body, _live(steps_cap), check_every, graph, dev)
         if use_slots:
             transferred = st["transferred"]
         elif E > 0:
@@ -685,7 +781,8 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
                                   flow_slots=None, frontier=None,
                                   frontier_caps=None,
                                   waterfill_impl: str = "auto",
-                                  device="cuda", check_every: int = 16):
+                                  device="cuda", check_every: int = 16,
+                                  step_graph: str = "auto"):
     """Returns ``run(bspec, est_durations, est_sizes, msd,
     decision_delay, bandwidth, seed, cores) -> SimResult``, a batched
     mirror of the reference simulator's event loop with its
@@ -702,19 +799,28 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
     when CUDA is requested and no card is present.  ``check_every`` is
     how many steps pass between the host's reads of "is any row still
     live".  ``flow_slots=False`` and ``frontier=False`` (the reference's
-    per-edge escape hatches) are not ported and raise."""
+    per-edge escape hatches) are not ported and raise.
+
+    ``step_graph`` (``_resolve_step_graph``): ``"auto"`` replays each
+    call's event step from a CUDA graph on a card and runs it eagerly on
+    the CPU; ``"graph"`` requires the graph, ``"eager"`` never uses one.
+    A static schedule's whole step is captured; ``greedy`` places tasks
+    in a loop whose length the host reads, so its ``apply_due -> invoke
+    -> apply_due`` prologue runs eagerly before each replay of the
+    rest."""
     if scheduler not in VEC_SCHEDULERS:
         raise KeyError(f"unknown vectorized scheduler {scheduler!r} "
                        f"(have {sorted(VEC_SCHEDULERS)})")
     _check_netmodel_options(netmodel, flow_slots, check_every)
     _resolve_frontier(frontier)
     dev = resolve_device(device)
+    graph = _resolve_step_graph(step_graph, dev)
     W = n_workers
     cores_default = _resolve_cores(n_workers, cores)
     max_cores = _max_cores(cores_default, max_cores)
     simple = netmodel == "simple"
     use_slots_cfg = not simple
-    wf = None if simple else _make_waterfill(waterfill_impl, dev)
+    wf = None if simple else _make_waterfill(waterfill_impl, dev, graph)
     S = W * DOWNLOAD_SLOTS
     dynamic_sched = VEC_SCHEDULERS[scheduler] == "dynamic"
     if dynamic_sched:
@@ -907,12 +1013,19 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             return wf(st["slot_src"], slot_dst_k, occ, caps)
 
         # -------------------------------------------------------- body
+        def prologue(st, live):
+            """Pending assignments that fall due, and (greedy) the
+            scheduler invocation: the part of the step that reads the
+            host."""
+            st = apply_due(dict(st))
+            st = invoke(st, live)
+            return apply_due(st)             # decision_delay == 0
+
         def body(st, live):
+            """The step after ``prologue`` (greedy), or all of it."""
             st = dict(st)
-            st = apply_due(st)
-            if dynamic_sched:
-                st = invoke(st, live)
-                st = apply_due(st)           # decision_delay == 0
+            if not dynamic_sched:
+                st = apply_due(st)
             # fused O(E) detection pass: new (producer-done,
             # consumer-assigned) pairs become flow candidates (dedup rep
             # pinned per key) and satisfied edges
@@ -1004,7 +1117,8 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
                                                              done_now)
             return st
 
-        st = _drive(st, body, _live(steps_cap), check_every)
+        st = _drive(st, body, _live(steps_cap), check_every, graph, dev,
+                    prologue if dynamic_sched else None)
         if use_slots:
             transferred = st["transferred"]
         else:
@@ -1122,13 +1236,15 @@ class BucketedGridRunner:
     matrix of K same-W cluster signatures (shorter clusters padded with
     zero-core workers).  ``__call__`` returns a ``SimResult`` of numpy
     arrays shaped ``[K, B, N]`` and raises if any simulation failed.
+    ``ShardedGridRunner`` (``engine.py``) streams the same rows in
+    chunks.
     """
 
     def __init__(self, entries, scheduler, n_workers, cores,
                  netmodel="maxmin", max_steps=None, shape=None,
                  batch=None, est_cache=None, *, device="cuda",
                  waterfill_impl="auto", flow_rounds=4, frontier_caps=None,
-                 check_every=16):
+                 check_every=16, step_graph="auto"):
         self.device = resolve_device(device)
         if isinstance(entries, dict):
             entries = list(entries.values())
@@ -1166,7 +1282,8 @@ class BucketedGridRunner:
             n_workers, None, scheduler, netmodel, flow_rounds, max_steps,
             max_cores=max(int(clusters.max()), 1),
             frontier_caps=frontier_caps, waterfill_impl=waterfill_impl,
-            device=self.device, check_every=check_every)
+            device=self.device, check_every=check_every,
+            step_graph=step_graph)
         self._est = {} if est_cache is None else est_cache
 
     @property
@@ -1190,10 +1307,11 @@ class BucketedGridRunner:
             self._est[name] = (np.stack(ds), np.stack(ss))
         return self._est[name]
 
-    def row_inputs(self, points):
-        """The flattened ``R = K * B * N`` row arguments of one grid call:
-        ``(spec, est_durations, est_sizes, msd, decision_delay,
-        bandwidth, seed, cores)`` as tensors on the runner's device."""
+    def _row_index(self, points):
+        """``(b_of, host_args)`` of one grid call: the graph of
+        each of the ``R = K * B * N`` rows, and the other row arguments
+        ``(est_durations, est_sizes, msd, decision_delay, bandwidth,
+        seed, cores)`` as host arrays."""
         points, M, DD, BW, SD = _points_arrays(points)
         K, B, N = self.K, self.B, len(points)
         D = np.stack([self._estimates(p.get("imode", "exact"))[0]
@@ -1203,24 +1321,33 @@ class BucketedGridRunner:
         b_of = np.repeat(np.arange(B), N * K)
         n_of = np.tile(np.repeat(np.arange(N), K), B)
         k_of = np.tile(np.arange(K), B * N)
+        return b_of, (D[b_of, n_of], Sz[b_of, n_of], M[n_of],
+                              DD[n_of], BW[n_of], SD[n_of].astype(np.int64),
+                              self.clusters[k_of].astype(np.int64))
+
+    def row_inputs(self, points):
+        """The flattened ``R = K * B * N`` row arguments of one grid call:
+        ``(spec, est_durations, est_sizes, msd, decision_delay,
+        bandwidth, seed, cores)`` as tensors on the runner's device."""
+        b_of, args = self._row_index(points)
         dev = self.device
         b_idx = torch.as_tensor(b_of, device=dev)
         spec = self._bspec_dev.map(lambda x: x.index_select(0, b_idx))
+        return (spec, *(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                        for a in args))
 
-        def put(a):
-            return torch.as_tensor(np.ascontiguousarray(a), device=dev)
-
-        return (spec, put(D[b_of, n_of]), put(Sz[b_of, n_of]),
-                put(M[n_of]), put(DD[n_of]), put(BW[n_of]),
-                put(SD[n_of].astype(np.int64)),
-                put(self.clusters[k_of].astype(np.int64)))
+    def _execute(self, points):
+        """One simulator call over all rows: a ``SimResult`` of ``[R]``
+        tensors on the device.  ``ShardedGridRunner`` streams the rows
+        in chunks instead, and returns the same."""
+        return self.run(*self.row_inputs(points))
 
     def __call__(self, points):
         """Run the grid; returns ``SimResult`` of numpy ``[K, B, N]``
         arrays with the graph axis in ``self.names`` order."""
         points = list(points)
         K, B, N = self.K, self.B, len(points)
-        res = self.run(*self.row_inputs(points))
+        res = self._execute(points)
         out = SimResult(*(x.cpu().numpy().reshape(B, N, K)
                           .transpose(2, 0, 1) for x in res))
         _check_ok(out.ok, f"{type(self).__name__}({self.names!r}, "

@@ -30,7 +30,8 @@ from ._ops import fma32
 INF = float("inf")
 
 
-def waterfill(src, dst, active, caps_up, caps_down, max_rounds=None):
+def waterfill(src, dst, active, caps_up, caps_down, max_rounds=None, *,
+              sync=True):
     """Max-min rates for batched flow sets.
 
     Args:
@@ -38,15 +39,19 @@ def waterfill(src, dst, active, caps_up, caps_down, max_rounds=None):
       active:   bool[R, F] flows currently transferring.
       caps_up, caps_down: f32[R, W] per-worker capacities (bytes/s).
       max_rounds: filling rounds bound (defaults to 2W).
+      sync: stop once the host reads that no row has a live flow;
+        ``False`` runs all ``max_rounds`` rounds without reading the
+        host (for a CUDA graph), with the same result.
 
     Returns: f32[R, F] rates (0 for inactive flows); ``[F]`` for
     unbatched input.
     """
     return waterfill_rounds(src, dst, active, caps_up, caps_down,
-                            max_rounds)[0]
+                            max_rounds, sync=sync)[0]
 
 
-def waterfill_rounds(src, dst, active, caps_up, caps_down, max_rounds=None):
+def waterfill_rounds(src, dst, active, caps_up, caps_down, max_rounds=None,
+                     *, sync=True):
     """``(rates, rounds)``: the rates of ``waterfill`` and the filling
     rounds each row took (int64 ``[R]``, or a scalar tensor for
     unbatched input) — the work a row's solve needs, one round per
@@ -69,8 +74,9 @@ def waterfill_rounds(src, dst, active, caps_up, caps_down, max_rounds=None):
     row_rounds = torch.zeros(R, dtype=torch.int64, device=src.device)
     rounds = 0
     # the host reads row_live once per round: rounds are few (a freeze
-    # per distinct bottleneck share) and this is the reference path
-    while rounds < max_rounds and bool(row_live.any()):
+    # per distinct bottleneck share) and this is the reference path.
+    # Without it every round runs; a row with no live flow is frozen.
+    while rounds < max_rounds and (not sync or bool(row_live.any())):
         live = active & ~frozen
         livef = live.float()
         counts = torch.zeros(R, 2 * W, dtype=torch.float32,

@@ -28,12 +28,17 @@ and a named ``workloads`` manifest (``wfcommons-mini``) sweeps its
 instances under bucket edges derived from the dataset itself
 (``workloads.compute_bucket_edges``).
 
-The reference counts jit traces per group and gates them
-(``check_compiles``, ``--assert-compiles``).  The port traces nothing,
-so neither is carried over; the ``compile_count`` and ``total_compiles``
-columns hold the count of runners whose first call a timing paid
-instead (1 per bucket row, B for ``__pergraph_path__``, the group count
-for ``total_compiles``).
+The reference compiles one program per group and gates the count
+(``check_compiles``, ``--assert-compiles``).  The port's counterpart of
+that program is the CUDA graph of the event step, captured once per
+simulator call (``engine.capture_counter``): ``--assert-compiles``
+gates captures == simulator calls (one per group, or one per chunk
+with ``--engine sharded``; nothing is captured on the CPU, so the gate
+fails there).  The ``compile_count`` column holds the captures of a
+bucket row's first call (B for ``__pergraph_path__``) and
+``total_compiles`` the captures of the whole grid.  ``--engine
+sharded`` streams each group's rows in chunks of ``--stream-rows``
+(``ShardedGridRunner``; ``--devices`` is 1, the one card).
 
 CLI (runs on the CUDA card unless told otherwise)::
 
@@ -41,6 +46,8 @@ CLI (runs on the CUDA card unless told otherwise)::
     PYTHONPATH=src python -m repro_torch.survey --mini \
         --dataset wfcommons-mini
     PYTHONPATH=src python -m repro_torch.survey --full --no-agreement
+    PYTHONPATH=src python -m repro_torch.survey --mini --engine sharded \
+        --stream-rows 32 --assert-compiles
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ import argparse
 import csv
 import math
 import os
+import sys
 import time
 
 import numpy as np
@@ -56,7 +64,8 @@ import torch
 from .core import (MiB, Simulator, make_scheduler, parse_cluster,
                    resolve_workers, w_bucket)
 from .core.graphs import encode_graph_batch, make_graph, survey_names
-from .core.vectorized import DynamicGridRunner, make_grid_runner
+from .core.vectorized import (DynamicGridRunner, capture_counter,
+                               make_grid_runner)
 from .device import resolve_device
 
 SCHEMA = ("graph_name", "cluster_name", "bandwidth", "netmodel",
@@ -216,7 +225,7 @@ def agreement_pass(grid, points, encoded, groups, runners, stats, dev):
     agree_rows = []
     for sched in grid["schedulers"]:
         for gi, grp in enumerate(groups):
-            runner, _, cnames = runners[(sched, netmodel, gi)]
+            runner, _, cnames, captures = runners[(sched, netmodel, gi)]
             cname = cnames[0]
             cores = parse_cluster(cname)
             _sync(dev)
@@ -233,7 +242,7 @@ def agreement_pass(grid, points, encoded, groups, runners, stats, dev):
                     "graph_name": gname, "scheduler_name": sched,
                     "cluster_name": cname, "netmodel": netmodel,
                     "bucket": grp.label, "group_size": runner.B,
-                    "compile_count": 1,
+                    "compile_count": captures,
                     "makespan_ratio": (float(res.makespan[0, b, 0])
                                        / reps[0].makespan),
                     "vec_us_per_sim": vec_us,
@@ -245,39 +254,44 @@ def agreement_pass(grid, points, encoded, groups, runners, stats, dev):
     # against the one bucketed runner's first call
     sched = grid["schedulers"][0]
     grp = groups[0]
-    runner, bucket_cold, cnames = runners[(sched, netmodel, 0)]
+    runner, bucket_cold, cnames, _ = runners[(sched, netmodel, 0)]
     cores = parse_cluster(cnames[0])
     _sync(dev)
     t0 = time.perf_counter()
-    for gname in grp.names:
-        g, spec = encoded[gname]
-        DynamicGridRunner(g, sched, len(cores), cores, netmodel=netmodel,
-                          spec=spec, device=dev)(points)
+    with capture_counter() as cc:
+        for gname in grp.names:
+            g, spec = encoded[gname]
+            DynamicGridRunner(g, sched, len(cores), cores,
+                              netmodel=netmodel, spec=spec,
+                              device=dev)(points)
     _sync(dev)
     pergraph_cold = time.perf_counter() - t0
     agree_rows.append({
         "graph_name": "__pergraph_path__", "scheduler_name": sched,
         "cluster_name": cnames[0], "netmodel": netmodel,
         "bucket": grp.label, "group_size": runner.B,
-        "compile_count": runner.B,
+        "compile_count": cc.captures,
         "bucket_cold_s": bucket_cold,
         "pergraph_cold_s": pergraph_cold,
         "speedup": pergraph_cold / bucket_cold,
-        "total_compiles": stats["groups"],
+        "total_compiles": stats["captures"],
         "bucket_groups": stats["bucket_groups"],
         "dataset": stats["dataset"],
     })
     return agree_rows
 
 
-def survey(grid, out_dir=OUT_DIR, device="cuda", agreement=True):
+def survey(grid, out_dir=OUT_DIR, device="cuda", agreement=True,
+           engine="vmap", devices=None, stream_rows=None):
     """Run the whole grid on ``device``; returns ``(rows, agree_rows,
     stats)`` and writes ``survey_torch.csv`` (and, with ``agreement``,
     ``survey_agreement_torch.csv``) under ``out_dir``.  ``stats`` counts
-    groups, simulations and processed events, the wall time of the
-    simulator calls (``wall_s``) and of the agreement pass
-    (``agreement_s``), each on the host's clock between device
-    synchronisations."""
+    groups, simulations and processed events, the simulator calls and
+    CUDA graph captures of the grid (``sim_calls``, ``captures``), the
+    wall time of the simulator calls (``wall_s``) and of the agreement
+    pass (``agreement_s``), each on the host's clock between device
+    synchronisations.  ``engine``, ``devices`` and ``stream_rows`` pick
+    the grid runner (``make_grid_runner``)."""
     dev = resolve_device(device)
     points = grid_points(grid)
     dataset, names, t_edges = dataset_axis(grid)
@@ -287,6 +301,7 @@ def survey(grid, out_dir=OUT_DIR, device="cuda", agreement=True):
     rows = []
     runners = {}                 # only the agreement slice is retained
     stats = dict(groups=0, sims=0, events=0, wall_s=0.0, all_ok=True,
+                 sim_calls=0, captures=0, engine=engine,
                  device=str(dev), dataset=dataset,
                  t_edges=("T_EDGES" if t_edges is None else tuple(t_edges)),
                  buckets=[f"{grp.label}:{','.join(grp.names)}"
@@ -304,21 +319,26 @@ def survey(grid, out_dir=OUT_DIR, device="cuda", agreement=True):
                         [encoded[n] for n in grp.names], sched, wb, cores2d,
                         netmodel=netmodel, shape=grp.shape, batch=grp.batch,
                         est_cache=est_caches[gi], device=dev,
-                        frontier_caps=full_frontier_caps(grp.shape))
+                        frontier_caps=full_frontier_caps(grp.shape),
+                        engine=engine, devices=devices,
+                        stream_rows=stream_rows)
                     _sync(dev)
                     t0 = time.perf_counter()
-                    res = runner(points)                 # [K, B, N]
+                    with capture_counter() as cc:
+                        res = runner(points)             # [K, B, N]
                     _sync(dev)
                     cold_s = time.perf_counter() - t0
                     stats["wall_s"] += cold_s
                     stats["groups"] += 1
+                    stats["sim_calls"] += cc.calls
+                    stats["captures"] += cc.captures
                     stats["sims"] += int(res.ok.size)
                     stats["events"] += int(res.n_events.sum())
                     stats["all_ok"] &= bool(res.ok.all())
                     if (wb == wgroups[0][0]
                             and netmodel == grid["netmodels"][0]):
-                        runners[(sched, netmodel, gi)] = (runner, cold_s,
-                                                          cnames)
+                        runners[(sched, netmodel, gi)] = (
+                            runner, cold_s, cnames, cc.captures)
                     for k, cname in enumerate(cnames):
                         for b, gname in enumerate(grp.names):
                             rows.extend(estee_rows(
@@ -355,6 +375,19 @@ def _write_csv(name, rows, out_dir, fieldnames):
     return path
 
 
+def check_compiles(stats):
+    """The one-program-per-simulator-call contract: every simulator call
+    of the grid (one per group, or one per chunk) captured its event
+    step in exactly one CUDA graph."""
+    if stats["captures"] != stats["sim_calls"] or stats["sim_calls"] < \
+            stats["groups"]:
+        raise AssertionError(
+            f"CUDA graph captures {stats['captures']} != simulator calls "
+            f"{stats['sim_calls']} over {stats['groups']} groups "
+            f"(engine {stats['engine']}, device {stats['device']}; the "
+            f"CPU runs every step eagerly and captures nothing)")
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -380,6 +413,8 @@ def report(rows, agree_rows, stats):
     if plain:
         print(f"survey/speedup_geomean,0,"
               f"{geomean([a['speedup'] for a in plain]):.2f}")
+    print(f"survey/sim_calls,0,{stats['sim_calls']}")
+    print(f"survey/graph_captures,0,{stats['captures']}")
     print(f"survey/bucket_groups,0,{stats['bucket_groups']}")
     print(f"survey/cluster_groups,0,{len(stats['cluster_groups'])}")
     print(f"survey/rows,0,{len(rows)}")
@@ -405,19 +440,45 @@ def main(argv=None):
                          "plain PyTorch path)")
     ap.add_argument("--out", default=OUT_DIR,
                     help=f"output directory (default {OUT_DIR!r})")
+    ap.add_argument("--assert-compiles", action="store_true",
+                    help="fail unless every simulator call captured its "
+                         "event step in one CUDA graph (one per group, or "
+                         "one per chunk)")
+    ap.add_argument("--engine", choices=("vmap", "sharded"), default="vmap",
+                    help="grid executor: one simulator call per group "
+                         "(default) or the streaming engine, one call per "
+                         "chunk of --stream-rows rows")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="sharded engine: number of cards (1; more is not "
+                         "ported)")
+    ap.add_argument("--stream-rows", type=int, default=None,
+                    help="sharded engine: double-buffered chunk size in "
+                         "grid rows (default: a group's rows in one chunk)")
     args = ap.parse_args(argv)
     grid = dict(FULL_GRID if args.full else MINI_GRID, dataset=args.dataset)
     rows, agree_rows, stats = survey(grid, out_dir=args.out,
                                      device=args.device,
-                                     agreement=not args.no_agreement)
+                                     agreement=not args.no_agreement,
+                                     engine=args.engine, devices=args.devices,
+                                     stream_rows=args.stream_rows)
     report(rows, agree_rows, stats)
     print(f"# survey_torch[{stats['dataset']}/{stats['device']}]: "
           f"{len(rows)} grid points, {stats['groups']} groups "
           f"({'; '.join(stats['buckets'])}; "
-          f"{'; '.join(stats['cluster_groups'])}), {stats['events']} events "
+          f"{'; '.join(stats['cluster_groups'])}; engine {stats['engine']}"
+          f"), {stats['events']} events "
           f"in {stats['wall_s']:.2f}s ({stats['events_per_s']:.1f} "
           f"events/s), agreement pass {stats['agreement_s']:.2f}s "
           f"-> {stats['csv']}")
+    if args.assert_compiles:
+        try:
+            check_compiles(stats)
+        except AssertionError as e:
+            print(f"error: {e}", file=sys.stderr)
+            sys.exit(1)
+        print("# compile-count assertion passed: "
+              f"{stats['captures']} captures == {stats['sim_calls']} "
+              f"simulator calls")
 
 
 if __name__ == "__main__":

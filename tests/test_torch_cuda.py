@@ -2,8 +2,9 @@
 waterfill K1, flash attention K2 on each of its routes and head dims,
 the SSD scan K3 whole and each of its three kernels alone) against
 their plain PyTorch versions, their launch counters and
-checks, and the dynamic and static simulators and the LM serving path
-through the kernels against the plain versions.
+checks, the dynamic and static simulators and the LM serving path
+through the kernels against the plain versions, and the simulators'
+event step replayed from a CUDA graph against the eager step.
 They
 are marked ``cuda`` and skip when no card is present; on a card run
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -198,6 +199,102 @@ def test_static_simulator_through_the_kernel_equals_the_plain_version(dev):
     for f in out["auto"]._fields:
         assert torch.equal(getattr(out["auto"], f),
                            getattr(out["torch"], f)), f
+
+
+def _step_graph_runs(run, modes=("eager", "graph")):
+    """``{mode: (result, K1 launches, capture_counter)}`` of ``run(mode)``
+    with the event step eager and replayed from a CUDA graph."""
+    from repro_torch.core.vectorized import capture_counter
+    from repro_torch.kernels import WATERFILL_LAUNCHES
+    out = {}
+    for mode in modes:
+        WATERFILL_LAUNCHES.reset()
+        with capture_counter() as cc:
+            res = run(mode)
+        torch.cuda.synchronize()
+        out[mode] = (res, WATERFILL_LAUNCHES.count, cc)
+    return out
+
+
+@pytest.mark.parametrize("netmodel", ["maxmin", "simple"])
+@pytest.mark.parametrize("sched", ["blevel", "greedy"])
+def test_step_graph_equals_eager_bitwise_with_one_capture(dev, sched,
+                                                          netmodel):
+    """The dynamic simulator with its event step replayed from a CUDA
+    graph (greedy: the placement prologue eager, the rest replayed):
+    every field bitwise the eager run's, one capture per simulator call
+    (one per chunk when streamed), and as many K1 launches."""
+    from repro_torch.core import MiB
+    from repro_torch.core.graphs import encode_graph_batch, survey_names
+    from repro_torch.core.vectorized import make_grid_runner
+    encoded, groups = encode_graph_batch(survey_names(1), bucket=True)
+    grp = groups[0]
+    points = [dict(bandwidth=32 * MiB, imode="user", msd=0.1,
+                   decision_delay=0.05),
+              dict(bandwidth=256 * MiB, imode="exact", msd=0.0)]
+    for engine, calls in (("vmap", 1), ("sharded", 3)):
+        runs = _step_graph_runs(lambda mode: make_grid_runner(
+            [encoded[n] for n in grp.names], sched, 8, [4] * 8,
+            netmodel=netmodel, shape=grp.shape, batch=grp.batch, device=dev,
+            step_graph=mode, engine=engine,
+            stream_rows=3 if engine == "sharded" else None)(points))
+        (eager, n_eager, c_eager), (graph, n_graph, c_graph) = \
+            runs["eager"], runs["graph"]
+        for f in eager._fields:
+            assert np.array_equal(getattr(eager, f), getattr(graph, f)), \
+                (engine, f)
+        assert c_eager.calls == c_graph.calls == calls
+        assert c_eager.captures == 0 and c_graph.captures == calls
+        assert c_graph.replays > 0
+        assert n_graph == n_eager
+        assert (n_graph > 0) == (netmodel == "maxmin")
+
+
+def test_static_step_graph_equals_eager_bitwise(dev):
+    """The static simulator at W 32 through K1 and through the plain
+    waterfill (all its rounds inside the graph): graph and eager runs
+    bitwise equal, one capture per call, equal K1 launches."""
+    from repro_torch.core.graphs import make_graph
+    from repro_torch.core.vectorized import build
+    from repro_torch.core.vectorized.specs import encode_graph
+    spec = encode_graph(make_graph("fastcrossv", seed=0))
+    rng = np.random.default_rng(1)
+    A = rng.integers(0, 32, (16, spec.T)).astype(np.int32)
+    P = rng.uniform(1, 100, (16, spec.T)).astype(np.float32)
+    for impl in ("auto", "torch"):
+        runs = _step_graph_runs(lambda mode: build(
+            spec, n_workers=32, cores=4, device=dev, waterfill_impl=impl,
+            step_graph=mode)(A, P))
+        (eager, n_eager, c_eager), (graph, n_graph, c_graph) = \
+            runs["eager"], runs["graph"]
+        assert bool(graph.ok.all())
+        for f in eager._fields:
+            assert torch.equal(getattr(eager, f), getattr(graph, f)), \
+                (impl, f)
+        assert c_graph.captures == c_graph.calls == 1
+        assert n_graph == n_eager and (n_graph > 0) == (impl == "auto")
+
+
+def test_step_graph_auto_captures_on_the_card(dev):
+    """``step_graph="auto"`` (the default) replays from a graph on the
+    card: one capture per call, every call's graph freed after it."""
+    from repro_torch.core.graphs import make_graph
+    from repro_torch.core.vectorized import build, capture_counter
+    from repro_torch.core.vectorized.specs import encode_graph
+    spec = encode_graph(make_graph("fastcrossv", seed=0))
+    A = np.zeros((4, spec.T), np.int32)
+    P = np.ones((4, spec.T), np.float32)
+    run = build(spec, n_workers=4, cores=4, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    with capture_counter() as cc:
+        for _ in range(3):
+            res = run(A, P)
+            del res
+    torch.cuda.synchronize()
+    assert cc.calls == cc.captures == 3
+    # no graph pool outlives its call
+    assert torch.cuda.memory_allocated(dev) <= base + (1 << 20)
 
 
 ATTN = [  # B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len

@@ -203,14 +203,17 @@ def test_options_not_ported_raise():
     kw = dict(n_workers=2, cores=4, device="cpu")
     with pytest.raises(NotImplementedError, match="escape hatch"):
         build(spec, flow_slots=False, **kw)
-    with pytest.raises(NotImplementedError, match="engine"):
-        build(spec, scheduler="blevel", dynamic=True, engine="sharded", **kw)
-    with pytest.raises(NotImplementedError, match="engine"):
-        make_grid_runner([(g, spec)], "blevel", 2, 4, device="cpu",
-                         engine="sharded")
-    with pytest.raises(TypeError, match="unknown option"):
-        make_grid_runner([(g, spec)], "blevel", 2, 4, device="cpu",
-                         stream_rows=8)
+    # the engine block is ported: it resolves, and the sharded runner
+    # streams rows on one card
+    from repro_torch.core.vectorized import (BucketedGridRunner,
+                                             ShardedGridRunner)
+    assert callable(build(spec, scheduler="blevel", dynamic=True,
+                          engine="sharded", **kw))
+    assert isinstance(make_grid_runner([(g, spec)], "blevel", 2, 4,
+                                       device="cpu", engine="sharded"),
+                      ShardedGridRunner)
+    assert type(make_grid_runner([(g, spec)], "blevel", 2, 4, device="cpu",
+                                 stream_rows=8)) is BucketedGridRunner
     with pytest.raises(NotImplementedError, match="escape hatch"):
         build(spec, scheduler="blevel", dynamic=True, frontier=False, **kw)
     with pytest.raises(TypeError, match="unknown option"):
