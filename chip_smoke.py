@@ -5,8 +5,8 @@
 Drives the port's main paths through the entry points a user calls,
 and checks them: the paper survey's batched dynamic simulator, the
 static simulator and the ``genetic-vec`` scheduler on it, all with the
-max-min waterfill kernel (K1), and serving Hymba-1.5B with the flash
-attention (K2) and Mamba-2 SSD scan (K3) kernels.  Phases, each
+max-min waterfill kernel (K1), and serving and training Hymba-1.5B
+with the flash attention (K2) and Mamba-2 SSD scan (K3) kernels.  Phases, each
 printing one JSON line:
 
 1. ``env``: the card's name and power limit.
@@ -140,9 +140,26 @@ printing one JSON line:
     are also counted by route (bf16: ``tc`` at prefill, ``split`` at
     decode; float32: ``f32``), and the prefill profile gives K2's and
     K3's device time and share.
-16. ``kernels``: each kernel with its launches on the main paths (K1's
-    summed over its path phases; K1 and K2 also by route); needs every
-    kernel's check phase and the phase of its path in the same run.
+16. ``train_hymba``: training Hymba-1.5B.  First a gradient check:
+    ``get_config("hymba-1.5b")`` at full width in float32 cut to 4
+    layers (layer 0 global, 1-3 a window of 1024), batch 2, seq 2048,
+    one ``make_train_step`` through the kernels and one through the
+    plain versions from the same parameters: loss within rtol 1e-5,
+    each parameter's gradient within a relative L2 error of 1e-4, K2
+    (``f32``) and K3 each launched twice a layer (the forward pass and
+    the remat recompute; the backward goes through their plain
+    versions).  Then ``repro_torch.launch.train`` on the unchanged
+    config (32 layers, bf16, remat ``full``, 1.64 B parameters), batch
+    4, seq 2048: 3 steps at accum 1 with a checkpoint at the end, one
+    more warm step under the profiler (K2's, K3's and the plain
+    backwards' share), then a restart that must resume at step 3 and
+    runs 2 steps at accum 2; finite losses, K2 (``tc``) and K3 each 64
+    launches a microbatch.  Prints ms/step (first and warm), tokens/s,
+    model TFLOP/s and peak memory.
+17. ``kernels``: each kernel with its launches on the main paths (K1's
+    summed over its path phases, K2's and K3's over ``serve_hymba`` and
+    ``train_hymba``; K1 and K2 also by route); needs every kernel's
+    check phase and the phases of its paths in the same run.
 
 Every simulator phase but ``survey_engine``'s eager turns, the eager
 turn of ``static_full_width`` and the input recording of
@@ -161,6 +178,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -172,7 +190,8 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 PHASES = ("env", "build", "kernel_waterfill", "golden", "survey_mini",
           "survey_agreement", "survey_dataset", "survey_full_width",
           "survey_engine", "static_golden", "static_full_width", "genetic_vec",
-          "kernel_flash_attention", "kernel_ssd", "serve_hymba", "kernels")
+          "kernel_flash_attention", "kernel_ssd", "serve_hymba",
+          "train_hymba", "kernels")
 
 # the recorded dynamic rows of BENCH_PR7.json (reference package, CPU)
 GOLDEN = {
@@ -1749,10 +1768,12 @@ def _device_profile(fn):
                 top_device=[(k[:70], v / 1e6) for k, v in top])
 
 
-def _profile(fn):
+def _profile(fn, ranges=()):
     """Wall time, device busy time and the top device kernels and host
     ops of one call of ``fn`` under ``torch.profiler`` (the profiler
-    slows the host, so the idle share is an upper bound)."""
+    slows the host, so the idle share is an upper bound).  ``ranges``:
+    names of ``record_function`` ranges whose device time (the kernels
+    launched inside them) is reported under ``range_device_ms``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1765,8 +1786,10 @@ def _profile(fn):
         wall = time.perf_counter() - t0
     avg = prof.key_averages()
     # device-side events only (kernels, copies): a host op's device time
-    # repeats the time of the kernels it launched
-    on_dev = [e for e in avg if e.device_type == DeviceType.CUDA]
+    # repeats the time of the kernels it launched; a range's span on the
+    # device timeline is not work
+    on_dev = [e for e in avg if e.device_type == DeviceType.CUDA
+              and e.key not in ranges]
     on_host = [e for e in avg if e.device_type == DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
     # K2: every kernel of csrc/flash_attention.cu is named flash_*
@@ -1779,15 +1802,21 @@ def _profile(fn):
                      reverse=True)[:10]
     top_host = sorted(on_host, key=lambda e: e.self_cpu_time_total,
                       reverse=True)[:10]
-    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
-                device_idle_share=1 - busy_ms / (wall * 1e3),
-                device_events=sum(e.count for e in on_dev),
-                k2_device_ms=k2_ms, k2_share=k2_ms / busy_ms,
-                k3_device_ms=k3_ms, k3_share=k3_ms / busy_ms,
-                top_device=[(e.key[:70], e.self_device_time_total / 1e3,
-                             e.count) for e in top_dev],
-                top_host=[(e.key[:70], e.self_cpu_time_total / 1e3,
-                           e.count) for e in top_host])
+    out = dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+               device_idle_share=1 - busy_ms / (wall * 1e3),
+               device_events=sum(e.count for e in on_dev),
+               k2_device_ms=k2_ms, k2_share=k2_ms / busy_ms,
+               k3_device_ms=k3_ms, k3_share=k3_ms / busy_ms,
+               top_device=[(e.key[:70], e.self_device_time_total / 1e3,
+                            e.count) for e in top_dev],
+               top_host=[(e.key[:70], e.self_cpu_time_total / 1e3,
+                          e.count) for e in top_host])
+    if ranges:
+        ms = {r: sum(e.device_time_total for e in on_host if e.key == r)
+              / 1e3 for r in ranges}
+        out.update(range_device_ms=ms,
+                   range_share={r: v / busy_ms for r, v in ms.items()})
+    return out
 
 
 def _profile_serve(model, prompts, forced, cache_len):
@@ -1919,6 +1948,216 @@ def phase_serve_hymba(seed=0, gen=32, prompt_len=1536, forced=4):
     return launches, routes
 
 
+# ------------------------------------------------------------ train
+# the record_function ranges of the kernels' plain backwards
+# (repro_torch.kernels._grad.plain_backward)
+PLAIN_BACKWARDS = ("flash_attention_backward_plain",
+                   "ssd_scan_backward_plain")
+
+
+class _GradRecorder:
+    """An optimizer for ``make_train_step`` that keeps the gradients and
+    leaves the parameters as they are."""
+
+    def update(self, grads, state, model):
+        self.grads = grads
+        return state
+
+
+def _train_grad_check(seed, layers=4, batch=2, seq=2048):
+    """Hymba-1.5B at full width in float32, cut to ``layers`` layers:
+    one ``make_train_step`` through the kernels and one through the plain
+    versions from the same parameters; loss within rtol 1e-5, each
+    parameter's gradient within a relative L2 error of 1e-4, K2 (``f32``)
+    and K3 each launched twice a layer (forward and remat recompute)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.kernels import SSD_LAUNCHES as SS
+    from repro_torch.models import init_params, make_train_step
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), dtype="float32",
+                              n_layers=layers)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = init_params(cfg, g, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device=dev)
+    runs = {}
+    for impl in ("auto", "torch"):
+        FA.reset()
+        SS.reset()
+        rec = _GradRecorder()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = make_train_step(cfg, rec, impl=impl)(model, None,
+                                                       {"tokens": tokens})
+        loss = float(metrics["loss"])
+        runs[impl] = dict(loss=loss, grads=rec.grads,
+                          wall_s=time.perf_counter() - t0,
+                          launches=dict(flash_attention=FA.count,
+                                        ssd=SS.count),
+                          routes=dict(FA.routes))
+    errs = {n: float((a - runs["torch"]["grads"][n]).norm()
+                     / runs["torch"]["grads"][n].norm().clamp_min(1e-30))
+            for n, a in runs["auto"]["grads"].items()}
+    by_leaf = {}
+    for n, e in errs.items():
+        leaf = n.rsplit(".", 1)[-1]
+        by_leaf[leaf] = max(e, by_leaf.get(leaf, 0.0))
+    worst = max(errs, key=errs.get)
+    la, lt = runs["auto"]["loss"], runs["torch"]["loss"]
+    want = dict(flash_attention=2 * layers, ssd=2 * layers)
+    line = dict(layers=layers, windows=list(cfg.window_pattern()),
+                batch=batch, seq=seq, dtype="float32", remat=cfg.remat,
+                loss_kernel=la, loss_plain=lt,
+                loss_rel_err=abs(la - lt) / abs(lt),
+                grad_rel_l2_worst=errs[worst], grad_worst_param=worst,
+                grad_rel_l2_by_param=by_leaf,
+                kernel_wall_s=runs["auto"]["wall_s"],
+                plain_wall_s=runs["torch"]["wall_s"],
+                kernel_launches=runs["auto"]["launches"],
+                kernel_launch_routes=runs["auto"]["routes"],
+                plain_launches=runs["torch"]["launches"])
+    ok = (line["loss_rel_err"] <= 1e-5 and errs[worst] <= 1e-4
+          and all(math.isfinite(v) for v in errs.values())
+          and runs["auto"]["launches"] == want
+          and runs["auto"]["routes"] == dict(tc=0, split=0, f32=2 * layers)
+          and runs["torch"]["launches"] == dict(flash_attention=0, ssd=0))
+    return line, ok
+
+
+def _plain_backward_bounds(cfg, batch, seq):
+    """Bounds (ms per step, bound_by) of the work the two plain backwards
+    stand in for, summed over the layers.  Attention: 10 D operations
+    per visible (query, key) pair (the scores recomputed, then dV, dP, dQ
+    and dK, as a flash-attention backward does) at the bf16 rate; q, o,
+    dO read and dq written, k, v read and dk, dv written, in bf16.  The
+    SSD scan: twice the forward's operations (each product's gradient is
+    two products) and bytes (dy read, a gradient written per input), at
+    the float32 rate."""
+    from repro_torch.kernels.ref import attention_mask
+    D, Hq, Hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
+    ops = nbytes = 0
+    for w in cfg.window_pattern():
+        pairs = int(attention_mask(seq, seq, window=w, device="cuda").sum())
+        ops += 10 * D * pairs * batch * Hq
+        nbytes += 2 * (4 * batch * Hq * seq * D + 4 * batch * Hkv * seq * D)
+    b, o = _ssd_work(batch, seq, cfg.ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state)
+    return {"flash_attention_backward_plain": _bound(nbytes, ops,
+                                                     BF16_OPS_PER_S),
+            "ssd_scan_backward_plain": _bound(2 * b * cfg.n_layers,
+                                              2 * o * cfg.n_layers,
+                                              F32_OPS_PER_S)}
+
+
+def phase_train_hymba(seed=0, batch=4, seq=2048):
+    """``repro_torch.launch.train`` on full Hymba-1.5B (bf16, remat full):
+    3 steps at accum 1 with a checkpoint at the end, one more warm step
+    under the profiler, then a restart that resumes at step 3 and runs 2
+    steps at accum 2.  Before it, the float32 gradient check
+    (``_train_grad_check``)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.kernels import SSD_LAUNCHES as SS
+    from repro_torch.launch import train
+
+    grad, grad_ok = _train_grad_check(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not grad_ok:
+        emit("train_hymba", card=CARD, grad_check=grad, ok=False)
+        raise AssertionError(f"train_hymba: the kernel path's gradients "
+                             f"disagree with the plain path's: {grad}")
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_hymba_ckpt.",
+                            dir=os.path.join(HERE, "build"))
+    base = ["--arch", "hymba-1.5b", "--batch", str(batch), "--seq",
+            str(seq), "--ckpt-dir", ckpt, "--ckpt-every", "100", "--seed",
+            str(seed), "--log-every", "1"]
+    runs, launches, routes = [], {}, None
+    try:
+        # (steps, accum, the step it starts from)
+        for steps, accum, want_start in ((3, 1, 0), (5, 2, 3)):
+            argv = ["--steps", str(steps), "--accum", str(accum)]
+            n_steps = steps - want_start
+            micro = n_steps * accum
+            # the main path's own counts: zeroed just before, read after
+            FA.reset()
+            SS.reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = train.run(base + argv)
+            wall = time.perf_counter() - t0
+            got = dict(flash_attention=FA.count, ssd=SS.count)
+            got_routes = dict(FA.routes)
+            cfg = res["cfg"]
+            n = cfg.param_count()
+            tokens = batch * seq
+            run = dict(argv=argv, start_step=res["start_step"],
+                       losses=res["losses"], step_ms=res["step_ms"],
+                       first_ms=res["step_ms"][0] if res["step_ms"]
+                       else None, warm_ms=res["warm_ms"],
+                       tokens_per_s=res["tokens_per_s"],
+                       model_tflops=6 * n * tokens / res["warm_ms"] / 1e9,
+                       model_tflops_with_recompute=8 * n * tokens
+                       / res["warm_ms"] / 1e9,
+                       run_wall_s=wall,
+                       outside_steps_s=wall - sum(res["step_ms"]) / 1e3,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       launches=got, launch_routes=got_routes,
+                       per_microbatch=dict(
+                           flash_attention=got["flash_attention"] / micro,
+                           ssd=got["ssd"] / micro))
+            want = dict(flash_attention=2 * cfg.n_layers * micro,
+                        ssd=2 * cfg.n_layers * micro)
+            good = (res["start_step"] == want_start
+                    and len(res["losses"]) == n_steps
+                    and all(math.isfinite(v) for v in res["losses"])
+                    and got == want
+                    and got_routes == dict(tc=want["flash_attention"],
+                                           split=0, f32=0)
+                    and cfg.remat == "full" and cfg.dtype == "bfloat16")
+            if want_start == 0:
+                # one more warm step of the same trainer (accum 1), after
+                # its checkpoint and outside the counted run
+                prof = _profile(
+                    lambda r=res: r["step_fn"](r["model"], r["opt_state"],
+                                               r["make_batch"](3)),
+                    ranges=PLAIN_BACKWARDS)
+                bounds = _plain_backward_bounds(cfg, batch, seq)
+                prof["plain_backwards"] = {
+                    r: dict(device_ms=prof["range_device_ms"][r],
+                            calls=cfg.n_layers,
+                            ms_per_call=prof["range_device_ms"][r]
+                            / cfg.n_layers, bound_ms=bounds[r][0],
+                            bound_by=bounds[r][1])
+                    for r in PLAIN_BACKWARDS}
+                run.update(profile=prof, params=n)
+            runs.append(run)
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            routes = got_routes if routes is None else {
+                r: routes[r] + got_routes[r] for r in routes}
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+            if not good:
+                emit("train_hymba", card=CARD, grad_check=grad, runs=runs,
+                     ok=False)
+                raise AssertionError(f"train_hymba: run {argv} wrong: "
+                                     f"{run}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit("train_hymba", card=CARD, grad_check=grad, runs=runs, ok=True)
+    return launches, routes
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1982,6 +2221,12 @@ def main(argv=None):
     if "serve_hymba" in phases:
         serve_launches, k2_routes = phase_serve_hymba()
         launches.update(serve_launches)
+    if "train_hymba" in phases:
+        train_launches, train_routes = phase_train_hymba()
+        for name, n in train_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        k2_routes = train_routes if k2_routes is None else {
+            r: k2_routes[r] + train_routes[r] for r in k2_routes}
     kernels = []
     for name, res, src, replaces, lib in (
             ("waterfill", wf, "waterfill.cu",

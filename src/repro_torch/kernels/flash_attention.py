@@ -35,6 +35,12 @@ CUDA source.
 ``LAUNCHES.count`` goes up by one per call served by a kernel (the
 split route's two kernels count once); ``LAUNCHES.routes`` counts the
 same calls by route, so a run shows which route served its path.
+
+Training: ``_FlashAttentionFn`` runs the kernel in the forward pass and,
+in the backward pass, differentiates the plain version
+``ref.attention_ref`` recomputed from the saved q, k, v
+(``_grad.plain_backward``); the kernel itself has no backward, as the
+Pallas kernel has none.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import torch
 
 from . import ref
 from ._counter import LaunchCounter
+from ._grad import plain_backward
 from ._launch import on_device, raw_stream
 
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
@@ -239,6 +246,28 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     _raise_on(err, route, q, k)
     LAUNCHES.add(route)
     return out
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """``kernel(q, k, v, ...)`` in the forward pass (``flash_attention``
+    on the model's path; the CPU tests hand it the plain version to check
+    the wiring), the gradient of ``ref.attention_ref`` in the backward
+    pass.  Arguments: q, k, v, causal, window, scale, kv_len, kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, kv_len, kernel):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, scale=scale,
+                        kv_len=kv_len)
+        return kernel(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = plain_backward("flash_attention_backward_plain",
+                               ref.attention_ref, ctx.saved_tensors,
+                               ctx.needs_input_grad[:3], grad_out,
+                               **ctx.opts)
+        return (*grads, None, None, None, None, None)
 
 
 def split_partials(q, k, v, *, window=0, scale=None, kv_len=None):

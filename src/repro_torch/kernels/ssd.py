@@ -33,6 +33,11 @@ model's path is float32 there even in a bfloat16 model.
 ``LAUNCHES.count`` goes up by one per ``ssd_scan`` call served by the
 kernels (its three launches count once); the per-phase functions are
 not counted.
+
+Training: ``_SSDScanFn`` runs ``ssd_scan`` in the forward pass and, in
+the backward pass, differentiates the plain version ``ref.ssd_chunked``
+recomputed from the saved inputs (``_grad.plain_backward``); the kernels
+have no backward, as the Pallas kernel has none.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import torch
 
 from . import ref
 from ._counter import LaunchCounter
+from ._grad import plain_backward
 
 MAX_CHUNK = 64
 
@@ -172,6 +178,27 @@ def ssd_scan(x, dt, A, B, C, D=None, *, chunk=64, return_state=False):
     y = _chunk_scan(x, dt, A, B, C, D, S, Q)
     LAUNCHES.count += 1
     return (y, state) if return_state else y
+
+
+class _SSDScanFn(torch.autograd.Function):
+    """``kernel(x, dt, A, B, C, D, chunk=)`` in the forward pass
+    (``ssd_scan`` on the model's path; the CPU tests hand it the plain
+    version to check the wiring), the gradient of ``ref.ssd_chunked`` for
+    x, dt, A, B, C and D in the backward pass.  Arguments: x, dt, A, B,
+    C, D (or None), chunk, kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, chunk, kernel):
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        ctx.chunk = chunk
+        return kernel(x, dt, A, B, C, D, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        grads = plain_backward("ssd_scan_backward_plain", ref.ssd_chunked,
+                               ctx.saved_tensors, ctx.needs_input_grad[:6],
+                               grad_y, chunk=ctx.chunk)
+        return (*grads, None, None)
 
 
 def chunk_states(x, dt, A, B, *, chunk=64):

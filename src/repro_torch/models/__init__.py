@@ -1,13 +1,17 @@
-"""LM stack of the port: the serving path (prefill and decode) of the
-hybrid attention + Mamba-2 decoder, with attention (K2) and the SSD scan
-(K3) as hand-written CUDA kernels on the card."""
+"""LM stack of the port: the training path (loss, train step with
+gradient accumulation and remat) and the serving path (prefill and
+decode) of the hybrid attention + Mamba-2 decoder, with attention (K2)
+and the SSD scan (K3) as hand-written CUDA kernels on the card."""
 from .config import ModelConfig
-from .convert import params_from_jax
-from .steps import make_decode_step, make_prefill_step, \
-    softmax_cross_entropy
+from .convert import opt_state_from_jax, opt_state_to_jax, \
+    params_from_jax, params_to_jax
+from .steps import make_decode_step, make_loss_fn, make_prefill_step, \
+    make_train_step, softmax_cross_entropy
 from .transformer import Transformer, decode_step, forward, init_params, \
     make_cache, prefill
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "forward",
-           "prefill", "decode_step", "make_cache", "make_prefill_step",
-           "make_decode_step", "softmax_cross_entropy", "params_from_jax"]
+           "prefill", "decode_step", "make_cache", "make_loss_fn",
+           "make_train_step", "make_prefill_step", "make_decode_step",
+           "softmax_cross_entropy", "params_from_jax", "params_to_jax",
+           "opt_state_from_jax", "opt_state_to_jax"]

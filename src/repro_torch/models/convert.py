@@ -1,13 +1,19 @@
-"""Carry the reference package's parameters across to the port.
+"""Carry parameters and optimizer state between the reference package's
+layout and the port, both ways.
 
 ``params_from_jax(tree, cfg)`` takes the numpy tree that
 ``jax.tree.map(np.asarray, params)`` gives for the reference's
 ``init_params(cfg, key)`` and returns a ``Transformer`` holding the same
-values.  Layouts are the same on both sides, so the conversion is a
-copy: the layer stack ``blocks/<group>/<name> [L, ...]`` is split into
-``layers.<i>.<group>.<name>``.  Types must match exactly; a bfloat16
-array (numpy's ``bfloat16`` extension type, which ``torch.from_numpy``
-rejects) is carried over bit for bit through ``uint16``.
+values; ``params_to_jax(model)`` is its inverse.  Layouts are the same on
+both sides, so the conversion is a copy: the layer stack
+``blocks/<group>/<name> [L, ...]`` is split into
+``layers.<i>.<group>.<name>`` and stacked back.  Types must match
+exactly.  numpy has no bfloat16 of its own: the reference's bfloat16
+arrays (the ``ml_dtypes`` extension type, which ``torch.from_numpy``
+rejects) are carried over bit for bit through ``uint16``, and the port
+hands its bfloat16 tensors out as their ``uint16`` bits, as the
+checkpoints store them.  ``opt_state_to_jax`` / ``opt_state_from_jax``
+do the same for the AdamW state (``step``, ``m``, ``v``).
 """
 from __future__ import annotations
 
@@ -15,21 +21,37 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..optim import AdamState
 from .config import ModelConfig
 from .transformer import Transformer
 
 
-def to_tensor(a) -> torch.Tensor:
+def to_tensor(a, dtype=None) -> torch.Tensor:
     """A numpy array (float32, int, or the bfloat16 extension type) as a
-    CPU tensor of the same type and bits."""
+    CPU tensor of the same type and bits; ``uint16`` bits become
+    bfloat16 when ``dtype`` is ``torch.bfloat16``.  A tensor is returned
+    as it is."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+    if a.dtype.name == "bfloat16" or (dtype == torch.bfloat16
+                                      and a.dtype == np.uint16):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
                                 .copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bfloat16 as its ``uint16``
+    bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
 def _flatten(tree, cfg):
+    """The reference's nested tree as ``{port name: array}``."""
     if "cross_blocks" in tree:
         raise NotImplementedError("cross-attention blocks are not ported "
                                   "to repro_torch yet (ROADMAP.md)")
@@ -46,23 +68,92 @@ def _flatten(tree, cfg):
     return flat
 
 
+def _unflatten(named):
+    """``{port name: tensor}`` as the reference's nested tree of host
+    tensors, the layers stacked on a leading axis: the inverse of
+    ``_flatten``."""
+    tree, stacks = {}, {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            stacks.setdefault(tuple(parts[2:]), {})[int(parts[1])] = t
+        else:
+            tree[name] = t.detach().cpu()
+    for path, per_layer in stacks.items():
+        node = tree.setdefault("blocks", {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack([per_layer[i].detach().cpu()
+                                      for i in sorted(per_layer)])
+    return tree
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def param_tree(model: Transformer):
+    """The model's parameters as the reference's nested tree of host
+    tensors (``blocks/attn/wq [L, ...]`` ...)."""
+    return _unflatten(dict(model.named_parameters()))
+
+
+def params_to_jax(model: Transformer):
+    """The model's parameters as the reference's nested tree of numpy
+    arrays (bfloat16 as ``uint16`` bits): the inverse of
+    ``params_from_jax``."""
+    return _map(to_numpy, param_tree(model))
+
+
 @torch.no_grad()
-def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> Transformer:
-    """A ``Transformer`` on ``device`` holding the reference's parameters
-    ``tree`` (nested dicts of numpy arrays)."""
-    dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
-    flat = _flatten(tree, cfg)
+def load_params(model: Transformer, tree):
+    """Copy a tree in the reference's layout (numpy arrays, ``uint16``
+    bits for bfloat16, or tensors) into ``model``'s parameters; raises
+    unless names, shapes and types all agree."""
+    flat = _flatten(tree, model.cfg)
     params = dict(model.named_parameters())
     if set(flat) != set(params):
         raise ValueError(f"parameter names disagree: only in the tree "
                          f"{sorted(set(flat) - set(params))}, only in the "
                          f"port {sorted(set(params) - set(flat))}")
     for name, arr in flat.items():
-        t = to_tensor(arr)
         p = params[name]
+        t = to_tensor(arr, p.dtype)
         if t.shape != p.shape or t.dtype != p.dtype:
             raise ValueError(f"{name}: tree has {tuple(t.shape)} {t.dtype}, "
                              f"the port {tuple(p.shape)} {p.dtype}")
         p.copy_(t)
     return model
+
+
+def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> Transformer:
+    """A ``Transformer`` on ``device`` holding the reference's parameters
+    ``tree`` (nested dicts of numpy arrays)."""
+    return load_params(Transformer(cfg, device=resolve_device(device)),
+                       tree)
+
+
+def opt_state_to_jax(state: AdamState):
+    """The AdamW state as ``{"step", "m", "v"}`` in the reference's
+    layout, numpy (``repro.optim.AdamState(**...)`` rebuilds it)."""
+    return {"step": to_numpy(state.step),
+            "m": _map(to_numpy, _unflatten(state.m)),
+            "v": _map(to_numpy, _unflatten(state.v))}
+
+
+def opt_state_from_jax(tree, cfg: ModelConfig, device="cuda") -> AdamState:
+    """An ``AdamState`` on ``device`` from the reference's AdamW state
+    (its ``AdamState`` or a ``{"step", "m", "v"}`` dict of numpy
+    trees)."""
+    dev = resolve_device(device)
+    get = tree.get if isinstance(tree, dict) else \
+        (lambda k: getattr(tree, k))
+
+    def moments(t):
+        return {n: to_tensor(a).to(dev)
+                for n, a in _flatten(t, cfg).items()}
+
+    step = torch.tensor(np.asarray(get("step")).item(), dtype=torch.int32)
+    return AdamState(step=step, m=moments(get("m")),
+                     v=moments(get("v")))

@@ -1,12 +1,14 @@
 """Mamba-2 (SSD) block: in_proj -> short depthwise conv -> selective SSD
 -> gated RMSNorm -> out_proj.  [Dao & Gu 2024, arXiv:2405.21060]
 
-Prefill runs the chunked SSD scan (K3 on the card, its plain version on
-the CPU), which also hands the final state to decode; decode advances
-the closed-form single-step recurrence in plain PyTorch with a carried
-(conv window, ssm state) cache.  Types follow the reference: the conv
-with its float32 weights promotes the SSD inputs to float32, so the
-scan runs in float32 even in a bfloat16 model.
+The training forward pass and prefill run the chunked SSD scan (K3 on
+the card, its plain version on the CPU; in training the gradient goes
+through the plain version), and prefill also hands the final state to
+decode; decode advances the closed-form single-step recurrence in plain
+PyTorch with a carried (conv window, ssm state) cache.  Types follow
+the reference: the conv with its float32 weights promotes the SSD
+inputs to float32, so the scan runs in float32 even in a bfloat16
+model.
 """
 from __future__ import annotations
 

@@ -1,25 +1,36 @@
 """Decoder stack of the LM slice: one ``nn.Module`` per layer in an
-``nn.ModuleList``, and the serving entry points.
+``nn.ModuleList``, the training forward pass and the serving entry
+points.
 
 * ``forward(model, tokens)``                     — full-sequence logits
+  (training: differentiable, each layer checkpointed per ``cfg.remat``)
 * ``prefill(model, tokens, cache_len=)``         — last-position logits
-  + cache
+  + cache (under ``no_grad``)
 * ``decode_step(model, tokens, cache, pos)``     — one token with a cache
+  (under ``no_grad``)
 
 Each layer carries its sliding window as a Python int, since the layer
 loop is Python.  Parameters keep the reference package's layouts and
 names (``layers.<i>.attn.wq`` is the reference's ``blocks/attn/wq[i]``),
 so ``convert.params_from_jax`` is a copy.  ``impl`` picks the kernels
 (``"auto"``: the CUDA kernels on the card, their plain versions on the
-CPU) or the plain versions everywhere (``"torch"``).  Not ported (each
-raises ``NotImplementedError``): MoE, cross-attention, the vision and
-audio frontends, the int8 and ring KV caches; training (remat, the
-train step) waits for the training slice.
+CPU; a gradient through a kernel is its plain version's, see
+``kernels/ops.py``) or the plain versions everywhere (``"torch"``).
+``cfg.remat`` follows the reference's ``_maybe_remat``: ``"none"``;
+``"full"``, each layer recomputed in the backward pass
+(``torch.utils.checkpoint.checkpoint``); ``"dots"``, the same but the
+outputs of matrix products without batch dims kept (``aten.mm`` /
+``addmm``, the reference's ``dots_with_no_batch_dims_saveable``).  Not
+ported (each raises ``NotImplementedError``): MoE, cross-attention, the
+vision and audio frontends, the int8 and ring KV caches.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
 from .config import ModelConfig
@@ -47,8 +58,7 @@ def check_supported(cfg: ModelConfig):
 
 def _params(shapes, dtype, device):
     return nn.ParameterDict({
-        n: nn.Parameter(torch.empty(s, dtype=dt or dtype, device=device),
-                        requires_grad=False)
+        n: nn.Parameter(torch.empty(s, dtype=dt or dtype, device=device))
         for n, (s, dt) in shapes.items()})
 
 
@@ -63,8 +73,7 @@ class Layer(nn.Module):
         d = cfg.d_model
         self.cfg = cfg
         self.window = int(window)
-        self.ln1 = nn.Parameter(torch.empty(d, dtype=f32, device=device),
-                                requires_grad=False)
+        self.ln1 = nn.Parameter(torch.empty(d, dtype=f32, device=device))
         self.attn = self.ssm = self.mlp = self.ln2 = None
         if not cfg.attn_free:
             hq, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -83,8 +92,7 @@ class Layer(nn.Module):
                 "dt_bias": ((nh,), f32), "norm": ((di,), f32),
                 "out_proj": ((di, d), None)}, act, device)
         if cfg.d_ff > 0:
-            self.ln2 = nn.Parameter(torch.empty(d, dtype=f32, device=device),
-                                    requires_grad=False)
+            self.ln2 = nn.Parameter(torch.empty(d, dtype=f32, device=device))
             self.mlp = _params({"w1": ((d, cfg.d_ff), None),
                                 "w3": ((d, cfg.d_ff), None),
                                 "w2": ((cfg.d_ff, d), None)}, act, device)
@@ -128,19 +136,16 @@ class Transformer(nn.Module):
         act, d, v = cfg.activation_dtype, cfg.d_model, cfg.vocab_size
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(v, d, dtype=act,
-                                              device=device),
-                                  requires_grad=False)
+                                              device=device))
         self.layers = nn.ModuleList(
             Layer(cfg, cfg.layer_window(i), device)
             for i in range(cfg.n_layers))
         self.final_norm = nn.Parameter(torch.empty(d, dtype=torch.float32,
-                                                   device=device),
-                                       requires_grad=False)
+                                                   device=device))
         self.lm_head = None
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(d, v, dtype=act,
-                                                    device=device),
-                                        requires_grad=False)
+                                                    device=device))
 
 
 # ------------------------------------------------------------------ init
@@ -206,12 +211,39 @@ def _unembed(model, x):
     return mm(x, model.lm_head)
 
 
-@torch.no_grad()
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+REMATS = ("none", "full", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of products without batch dims, recompute the
+    rest (the reference's ``dots_with_no_batch_dims_saveable``)."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat(layer, cfg):
+    """``layer`` wrapped per ``cfg.remat`` (when autograd records)."""
+    if cfg.remat not in REMATS:
+        raise ValueError(f"remat {cfg.remat!r} not in {REMATS}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return layer
+    kw = dict(context_fn=_dots_context) if cfg.remat == "dots" else {}
+    # the layers draw no random numbers: no RNG state to restore
+    return functools.partial(ckpt.checkpoint, layer, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
+
+
 def forward(model: Transformer, tokens, cache=None, cache_pos: int = 0,
             impl="auto"):
-    """tokens: [B, S] integer.  cache=None: full forward.  Otherwise
-    prefill / decode with the list from ``make_cache`` (updated and
-    returned).  Returns (logits [B, S, V], cache)."""
+    """tokens: [B, S] integer.  cache=None: full forward, differentiable
+    when grad mode is on.  Otherwise prefill / decode with the list from
+    ``make_cache`` (updated and returned).  Returns (logits [B, S, V],
+    cache)."""
     cfg = model.cfg
     act = cfg.activation_dtype
     x = model.embed[tokens] * torch.tensor(cfg.d_model ** 0.5, dtype=act,
@@ -221,14 +253,17 @@ def forward(model: Transformer, tokens, cache=None, cache_pos: int = 0,
     positions = (cache_pos + torch.arange(S, device=tokens.device))[None, :]
     positions = positions.expand(B, S)
     for i, layer in enumerate(model.layers):
-        x, c = layer(x, positions, cache_pos, kv_len,
-                     None if cache is None else cache[i], impl)
-        if cache is not None:
-            cache[i] = c
+        if cache is None:
+            x, _ = remat(layer, cfg)(x, positions, cache_pos, kv_len, None,
+                                     impl)
+        else:
+            x, cache[i] = layer(x, positions, cache_pos, kv_len, cache[i],
+                                impl)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return _unembed(model, x), cache
 
 
+@torch.no_grad()
 def prefill(model: Transformer, tokens, cache_len=None, impl="auto"):
     """Run the prompt; returns (last-position logits, cache, next_pos)."""
     cfg = model.cfg
@@ -240,6 +275,7 @@ def prefill(model: Transformer, tokens, cache_len=None, impl="auto"):
     return logits[:, -1:], cache, S
 
 
+@torch.no_grad()
 def decode_step(model: Transformer, tokens, cache, pos: int, impl="auto"):
     """One decode step.  tokens [B, 1]; pos: the Python int position."""
     logits, cache = forward(model, tokens, cache=cache, cache_pos=pos,

@@ -1,12 +1,13 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels (the
 waterfill K1, flash attention K2 on each of its routes and head dims,
 the SSD scan K3 whole and each of its three kernels alone) against
-their plain PyTorch versions, their launch counters and
-checks, the dynamic and static simulators and the LM serving path
-through the kernels against the plain versions, and the simulators'
-event step replayed from a CUDA graph against the eager step.
-They
-are marked ``cuda`` and skip when no card is present; on a card run
+their plain PyTorch versions, their launch counters and checks, the
+dynamic and static simulators and the LM serving path through the
+kernels against the plain versions, the gradients of K2 and K3 (the
+kernel forward, the plain backward) and a training loss and gradient
+through them, and the simulators' event step replayed from a CUDA graph
+against the eager step.  They are marked ``cuda`` and skip when no card
+is present; on a card run
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
 import numpy as np
@@ -468,3 +469,73 @@ def test_serving_through_the_kernels_matches_the_plain_path(dev, arch):
         out[impl] = torch.cat(logits, dim=1)
     torch.testing.assert_close(out["auto"], out["torch"], atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_gradient_goes_through_the_kernel_and_the_plain_backward(
+        dev, dtype):
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(11)
+    dt = getattr(torch, dtype)
+    q = torch.randn(2, 10, 96, 64, generator=g, device=dev).to(dt)
+    k, v = (torch.randn(2, 2, 96, 64, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    gout = torch.randn(2, 10, 96, 64, generator=g, device=dev).to(dt)
+    kw = dict(causal=True, window=40)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = FA.count
+    out = ops.attention(*leaves, **kw)
+    assert FA.count == before + 1
+    got = torch.autograd.grad(out, leaves, gout)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention_ref(*plain, **kw), plain, gout)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == dt
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+def test_ssd_gradient_goes_through_the_kernel_and_the_plain_backward(dev):
+    from repro_torch.kernels import SSD_LAUNCHES, ops, ref
+    g = torch.Generator(device=dev).manual_seed(12)
+    Bt, L, H, P, N = 2, 128, 3, 64, 16
+    x = torch.randn(Bt, L, H, P, generator=g, device=dev)
+    dt = 0.001 + 0.099 * torch.rand(Bt, L, H, generator=g, device=dev)
+    A = -(0.5 + 1.5 * torch.rand(H, generator=g, device=dev))
+    B, C = (torch.randn(Bt, L, N, generator=g, device=dev)
+            for _ in range(2))
+    D = torch.randn(H, generator=g, device=dev)
+    gy = torch.randn(Bt, L, H, P, generator=g, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, B, C, D)]
+    before = SSD_LAUNCHES.count
+    y = ops.ssd(*leaves, chunk=64)
+    assert SSD_LAUNCHES.count == before + 1
+    got = torch.autograd.grad(y, leaves, gy)
+    plain = [t.clone().requires_grad_() for t in (x, dt, A, B, C, D)]
+    want = torch.autograd.grad(ref.ssd_chunked(*plain, chunk=64), plain, gy)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-130m",
+                                  "gemma3-1b"])
+def test_training_through_the_kernels_matches_the_plain_path(dev, arch):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params, make_loss_fn
+    cfg = smoke_config(arch, remat="full")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(1))
+    out = {}
+    for impl in ("auto", "torch"):
+        loss = make_loss_fn(cfg, impl=impl)(model, {"tokens": toks})
+        out[impl] = (loss.detach(), torch.autograd.grad(
+            loss, list(model.parameters())))
+    torch.testing.assert_close(out["auto"][0], out["torch"][0], atol=1e-5,
+                               rtol=1e-5)
+    for a, b in zip(out["auto"][1], out["torch"][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)

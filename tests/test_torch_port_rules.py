@@ -1,6 +1,7 @@
 """Rules of the PyTorch port: ``repro_torch`` imports neither JAX nor
 anything of the reference package (checked in a fresh interpreter that
-imports every module, runs a small CPU grid and serves a smoke model),
+imports every module, runs a small CPU grid, serves a smoke model and
+trains one),
 and its entry points default to CUDA — without a card they raise
 instead of running on the CPU."""
 import ast
@@ -42,6 +43,22 @@ from repro_torch.launch.serve import serve
 out = serve(smoke_config("hymba-1.5b"), batch=1, prompt_len=8, gen=2,
             device="cpu")
 assert out["tokens"].shape == (1, 2)
+import torch
+from repro_torch.models import init_params, make_train_step
+from repro_torch.optim import AdamW
+cfg = smoke_config("hymba-1.5b")
+model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+opt = AdamW(lr=1e-3)
+metrics = make_train_step(cfg, opt, accum=2, clip_norm=1.0)(
+    model, opt.init(model), {"tokens": torch.randint(0, 128, (2, 8))})
+assert torch.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0
+import tempfile
+from repro_torch.launch.train import main as train_main
+with tempfile.TemporaryDirectory() as d:
+    losses = train_main(["--arch", "gemma3-1b", "--smoke", "--steps", "2",
+                         "--batch", "2", "--seq", "8", "--ckpt-dir", d,
+                         "--device", "cpu"])
+assert len(losses) == 2
 from repro_torch.core import Simulator, make_scheduler, resolve_workers
 from repro_torch.survey import MINI_GRID, dataset_axis, time_reference_twin
 rep = Simulator(g, resolve_workers([2, 2]), make_scheduler("ws")).run()
@@ -155,6 +172,19 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_a_card():
         init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({}, cfg)
+
+
+def test_train_cli_raises_without_a_card():
+    _needs_no_card()
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "hymba-1.5b", "--smoke", "--steps", "1"])
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--arch", "mamba2-130m", "--smoke", "--steps",
+                          "1"], cwd=str(ROOT), env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "final loss" not in out.stdout
 
 
 def test_serve_cli_raises_without_a_card():

@@ -113,8 +113,8 @@ def test_full_forward_matches_reference():
                             device="cpu")
     got, cache = forward(model, torch.as_tensor(tokens, dtype=torch.long))
     assert cache is None
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
-                               rtol=1e-4)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_bf16_params_carry_across_bit_for_bit():
