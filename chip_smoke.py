@@ -101,7 +101,10 @@ printing one JSON line:
 13. ``kernel_flash_attention``: K2 against its plain version on the card
    (float32 and bfloat16) at Hymba's prefill shape (B 4, Hq 25, Hkv 5,
    Sq 1536, Skv 1568, kv_len 1536, window 1024 and 0, the KV cache's
-   strided layout), its decode shape (Sq 1), gemma3's head dim 256, an
+   strided layout), its decode shape (Sq 1), ``train_hymba``'s shape
+   (Sq = Skv = 2048, no kv_len, the transposed projections; window 1024
+   and 0: the forward pass and remat recompute of the bf16 training
+   run, ``tc``), gemma3's head dim 256, an
    MQA case (one kv head), a non-causal case, head dims 128
    (qwen3-32b-like: Hq 64, Hkv 8) and 160 (stablelm-12b-like: Hq 32,
    Hkv 8) at prefill (Sq 512) and decode, then bfloat16 cases at
@@ -119,14 +122,15 @@ printing one JSON line:
    time on the card than on the host's clock, so an eager loop times
    the host: there ``ms`` and ``library_ms`` are device times of calls
    replayed from a CUDA graph, and the eager times stand beside them
-   (``eager_ms``, ``library_eager_ms``).  Hymba's four cases and the
+   (``eager_ms``, ``library_eager_ms``).  Hymba's six cases and the
    four D 128/160 cases are timed.
 14. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
     ``ssd_state_pass``, ``ssd_chunk_scan``) each alone against its plain
     piece (``ref.ssd_chunk_states``, ``ssd_pass_states``,
     ``ssd_chunk_scan``), and the whole call against ``ssd_chunked`` and
     the sequential final state, at Hymba's prefill shape (Bt 4, L 1536,
-    H 50, P 64, N 16), mamba2-130m's (H 24, N 128) and edge cases (one
+    H 50, P 64, N 16), mamba2-130m's (H 24, N 128), ``train_hymba``'s
+    (Bt 4, L 2048) and edge cases (one
     chunk, chunk 32, P 16, N 128, a short last head group, a decay that
     overflows above the diagonal, Q/P/N off a multiple of 4, the smoke
     serve's L 8); fails above atol/rtol 1e-4.  Times the call and each
@@ -155,7 +159,8 @@ printing one JSON line:
     backwards' share), then a restart that must resume at step 3 and
     runs 2 steps at accum 2; finite losses, K2 (``tc``) and K3 each 64
     launches a microbatch.  Prints ms/step (first and warm), tokens/s,
-    model TFLOP/s and peak memory.
+    model TFLOP/s, peak memory and the seconds of each checkpoint save
+    and restore.
 17. ``kernels``: each kernel with its launches on the main paths (K1's
     summed over its path phases, K2's and K3's over ``serve_hymba`` and
     ``train_hymba``; K1 and K2 also by route); needs every kernel's
@@ -1391,6 +1396,10 @@ ATTN_CASES = (
     ("prefill_w0", 4, 25, 5, 1536, 1568, 64, 1536, 0, True, True),
     ("decode_w1024", 4, 25, 5, 1, 1568, 64, 1552, 1024, True, True),
     ("decode_w0", 4, 25, 5, 1, 1568, 64, 1552, 0, True, True),
+    # train_hymba's forward pass and remat recompute: batch 4 x 2048, the
+    # projections transposed (the cache's layout), no kv_len
+    ("train_w1024", 4, 25, 5, 2048, 2048, 64, None, 1024, True, True),
+    ("train_w0", 4, 25, 5, 2048, 2048, 64, None, 0, True, True),
     ("gemma3_d256", 2, 4, 1, 512, 512, 256, 512, 256, True, False),
     ("mqa_d32", 2, 8, 1, 300, 300, 32, 300, 0, True, False),
     ("noncausal_d16", 2, 4, 2, 100, 100, 16, 100, 0, False, False),
@@ -1401,7 +1410,8 @@ ATTN_CASES = (
     ("stablelm_d160_prefill", 2, 32, 8, 512, 512, 160, 512, 0, True, True),
     ("stablelm_d160_decode", 2, 32, 8, 1, 520, 160, 513, 0, True, True),
 )
-ATTN_PATH = ("prefill_w1024", "prefill_w0", "decode_w1024", "decode_w0")
+ATTN_PATH = ("prefill_w1024", "prefill_w0", "decode_w1024", "decode_w0",
+             "train_w1024", "train_w0")
 # timed beside the path's cases: the head dims 128 and 160
 ATTN_TIMED = ATTN_PATH + ("qwen3_d128_prefill", "qwen3_d128_decode",
                           "stablelm_d160_prefill", "stablelm_d160_decode")
@@ -1631,10 +1641,12 @@ def _ssd_work(Bt, L, H, P, N, Q=64):
 
 
 # name, Bt, L, H, P, N, chunk, (A, dt) held constant or None; the first
-# two are the models' prefill shapes and are timed
+# two are the models' prefill shapes, the third train_hymba's forward
+# pass and remat recompute, and are timed
 SSD_CASES = (
     ("hymba", 4, 1536, 50, 64, 16, 64, None),
     ("mamba2_130m", 4, 1536, 24, 64, 128, 64, None),
+    ("hymba_train", 4, 2048, 50, 64, 16, 64, None),
     ("single_chunk", 2, 64, 6, 64, 16, 64, None),
     ("chunk32", 2, 256, 10, 64, 16, 32, None),
     ("n128_p32", 1, 128, 3, 32, 128, 64, None),
@@ -1647,7 +1659,7 @@ SSD_CASES = (
     ("odd_q9_p10_n6", 2, 36, 3, 10, 6, 9, None),
     ("smoke_serve_l8", 2, 8, 4, 16, 8, 64, None),
 )
-SSD_TIMED = ("hymba", "mamba2_130m")
+SSD_TIMED = ("hymba", "mamba2_130m", "hymba_train")
 # the single-kernel K3 that the three-phase design replaced, at Hymba's
 # shape (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W)
 SSD_EARLIER_MS = 0.8908240318298339
@@ -2109,6 +2121,8 @@ def phase_train_hymba(seed=0, batch=4, seq=2048):
                        / res["warm_ms"] / 1e9,
                        run_wall_s=wall,
                        outside_steps_s=wall - sum(res["step_ms"]) / 1e3,
+                       ckpt_restore_s=res["ckpt_s"]["restore"],
+                       ckpt_save_s=res["ckpt_s"]["save"],
                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                        launches=got, launch_routes=got_routes,
                        per_microbatch=dict(

@@ -6,9 +6,8 @@
         --smoke --steps 100 --ckpt-dir ckpt --device cpu  # plain path, CPU
 
 The reference's trainer (``repro/launch/train.py``) with its flags, plus
-``--device`` (default ``cuda``, which raises without a card) and
-``--impl`` (``auto``: the CUDA kernels K2 and K3 in the forward pass on
-the card; ``torch``: the plain versions).  Parameters come from
+``--device`` (default ``cuda``, which raises without a card; on the card
+the forward pass runs the CUDA kernels K2 and K3).  Parameters come from
 ``init_params(cfg, generator, device)`` with a ``torch.Generator``
 seeded by ``--seed``; batches are the step-keyed ``TokenPipeline``'s, so
 with atomic keep-N checkpoints a preempted run restarted with the same
@@ -50,14 +49,14 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--impl", default="auto", choices=["auto", "torch"])
     return ap.parse_args(argv)
 
 
 def run(argv=None):
     """Train as ``main`` does; returns a dict with the ``losses``, the
     ms of each step (``step_ms``), ``start_step``, tokens/s of the warm
-    steps, and the ``model``, ``opt_state``, ``step_fn``, ``cfg`` and
+    steps, the seconds of the checkpoint restore and of each save
+    (``ckpt_s``), and the ``model``, ``opt_state``, ``step_fn``, ``cfg`` and
     ``make_batch`` of the run."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
@@ -71,14 +70,16 @@ def run(argv=None):
                         .manual_seed(args.seed), device=dev)
     opt = AdamW(lr=args.lr, warmup_steps=min(20, args.steps // 5))
     opt_state = opt.init(model)
-    step_fn = make_train_step(cfg, opt, accum=args.accum, clip_norm=1.0,
-                              impl=args.impl)
+    step_fn = make_train_step(cfg, opt, accum=args.accum, clip_norm=1.0)
 
     start_step = 0
     mgr = None
+    ckpt_s = dict(restore=None, save=[])    # host seconds of each call
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, keep=3)
+        t0 = time.perf_counter()
         restored = mgr.restore(model, opt_state)
+        ckpt_s["restore"] = time.perf_counter() - t0
         if restored:
             start_step = restored["step"]
             print(f"restored checkpoint at step {start_step}")
@@ -109,8 +110,10 @@ def run(argv=None):
                       f"({statistics.mean(recent):.0f} ms/step)")
             if mgr and ((step + 1) % args.ckpt_every == 0 or stop["now"]
                         or step + 1 == args.steps):
+                t0 = time.perf_counter()
                 mgr.save(step + 1, model, opt_state,
                          extra={"loss": losses[-1]})
+                ckpt_s["save"].append(time.perf_counter() - t0)
             if stop["now"]:
                 print(f"preemption: checkpointed at step {step + 1}, "
                       f"exiting")
@@ -128,8 +131,8 @@ def run(argv=None):
               f"device={dev}: first step {step_ms[0]:.1f} ms, warm "
               f"{warm_ms:.1f} ms/step ({tokens_per_s:.0f} tokens/s)")
     return dict(losses=losses, step_ms=step_ms, start_step=start_step,
-                warm_ms=warm_ms, tokens_per_s=tokens_per_s, model=model,
-                opt_state=opt_state, step_fn=step_fn, cfg=cfg,
+                warm_ms=warm_ms, tokens_per_s=tokens_per_s, ckpt_s=ckpt_s,
+                model=model, opt_state=opt_state, step_fn=step_fn, cfg=cfg,
                 make_batch=make_batch, device=str(dev))
 
 

@@ -131,8 +131,9 @@ def test_train_steps_with_grad_compression_match_reference(accum):
     another order land on the other side of a rounding boundary) into a
     visible change of a small accumulated gradient, which AdamW's second
     step divides by its small ``sqrt(v)`` (the first step only takes its
-    sign): after step 2 at most 0.1 % of the elements may lie beyond TOL,
-    and none further than TOL plus one step's learning rate."""
+    sign).  Two of the 208,376 elements lie beyond TOL after step 2
+    (mlp w1 by 3.9e-05, ssm in_proj by 1.2e-05): at most 8 may, and no
+    element may be further than 1e-4 from the reference's."""
     arch = "hymba-1.5b"
     tree0, batches, after = _jax_run(arch, accum, True)
     model, _, _ = _torch_steps(arch, tree0, batches[:1], accum, True)
@@ -142,14 +143,12 @@ def test_train_steps_with_grad_compression_match_reference(accum):
     if accum == 1:
         _assert_trees_close(got, want, f"{arch} accum 1")
         return
-    beyond = n = 0
+    beyond = 0
     for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
         err = np.abs(g - w)
-        tol = TOL["atol"] + TOL["rtol"] * np.abs(w)
-        assert (err <= tol + OPT["lr"]).all()
-        beyond += int((err > tol).sum())
-        n += w.size
-    assert beyond <= 1e-3 * n
+        assert err.max() <= 1e-4
+        beyond += int((err > TOL["atol"] + TOL["rtol"] * np.abs(w)).sum())
+    assert beyond <= 8
 
 
 @pytest.mark.parametrize("arch", ARCHS)
