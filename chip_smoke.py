@@ -5,8 +5,9 @@
 Drives the port's main paths through the entry points a user calls,
 and checks them: the paper survey's batched dynamic simulator, the
 static simulator and the ``genetic-vec`` scheduler on it, all with the
-max-min waterfill kernel (K1), and serving and training Hymba-1.5B
-with the flash attention (K2) and Mamba-2 SSD scan (K3) kernels.  Phases, each
+max-min waterfill kernel (K1), serving and training Hymba-1.5B with
+the flash attention (K2) and Mamba-2 SSD scan (K3) kernels, and serving
+the other seven architecture families through K2.  Phases, each
 printing one JSON line:
 
 1. ``env``: the card's name and power limit.
@@ -111,7 +112,11 @@ printing one JSON line:
    the edges of the tensor-core and split routes (``Sq``, ``Skv`` and
    ``kv_len`` off the tile, a window ending inside a tile, decode at
    ``kv_len`` 1, with one split and with several, more than 8 query
-   heads per kv head, D 160 and D 128 off the tile and windowed); fails
+   heads per kv head, D 160 and D 128 off the tile and windowed), and
+   the served families' shapes (chatglm3-6b's group of 16 and mixtral's
+   group of 6 with its window of 4096 at D 128, musicgen's MHA at D 64,
+   the vision model's non-causal cross-attention over 1600 tokens at
+   prefill and decode and with a 2048-token prompt, Sq > kv_len); fails
    above atol/rtol 1e-5 (float32) or atol
    4e-3 / rtol 8e-3 (bfloat16).  The split route's two kernels are also
    held alone against ``ref.attention_partials`` (atol/rtol 1e-4) and
@@ -122,8 +127,8 @@ printing one JSON line:
    time on the card than on the host's clock, so an eager loop times
    the host: there ``ms`` and ``library_ms`` are device times of calls
    replayed from a CUDA graph, and the eager times stand beside them
-   (``eager_ms``, ``library_eager_ms``).  Hymba's six cases and the
-   four D 128/160 cases are timed.
+   (``eager_ms``, ``library_eager_ms``).  Hymba's six cases, the
+   four D 128/160 cases and the families' nine are timed.
 14. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
     ``ssd_state_pass``, ``ssd_chunk_scan``) each alone against its plain
     piece (``ref.ssd_chunk_states``, ``ssd_pass_states``,
@@ -161,10 +166,45 @@ printing one JSON line:
     launches a microbatch.  Prints ms/step (first and warm), tokens/s,
     model TFLOP/s, peak memory and the seconds of each checkpoint save
     and restore.
-17. ``kernels``: each kernel with its launches on the main paths (K1's
-    summed over its path phases, K2's and K3's over ``serve_hymba`` and
-    ``train_hymba``; K1 and K2 also by route); needs every kernel's
-    check phase and the phases of its paths in the same run.
+17. ``serve_dense``: ``launch.serve.serve`` (bf16, through the kernels)
+    of chatglm3-6b (28 layers), stablelm-12b (40) and qwen3-32b (64)
+    whole, batch 4, prompt 1536, 16 generated tokens: a cold run (the
+    main path, K2 counted: ``tc`` once a layer, ``split`` once a layer
+    a step) and a warm ``generate`` of the same prompts on the same
+    weights (equal tokens); prefill ms, decode ms/step, tokens/s and
+    peak memory of each.  Then the int8 KV cache on the qwen3-32b
+    weights: a timed serve and, teacher-forced on the bf16 tokens, how
+    far its logits are from the bf16 cache's (printed).  Then each
+    config in float32 cut to 2 layers, batch 2, prompt 512 and 4
+    teacher-forced decode steps through the kernels (K2 ``f32``) and
+    the plain versions: logits within 1e-3, greedy tokens equal (qwen3
+    with both caches); and qwen3's int8 cache within the reference's own
+    bound of the float32 cache at the reference check's depth and type
+    (2 layers, float32: 0.05 x the logits' scale).
+18. ``serve_moe``: mixtral-8x22b and llama4-scout at full width cut to 8
+    layers (the whole models are 281 and 204 GB; one card), served as
+    above (dense dispatch); on the mixtral weights the gather and dense
+    dispatches in turns (gather, gather, dense), then the ring KV cache:
+    batch 1, a 4096-token prompt that fills the window and 32 decode
+    steps that wrap it, against a full-length cache (bf16: each step's
+    largest difference and the greedy agreement printed).  The float32
+    checks (mixtral's with both dispatches), and the ring at full width
+    in float32 on 2 layers: within 5e-4 x the logits' scale of the
+    full-length cache (the reference's own bound), greedy tokens
+    equal.
+19. ``serve_vision``: llama-3.2-vision-11b whole (32 self and 8 cross
+    layers) over the vision stub's 1600 encoder states, served as above;
+    then one 2048-token prompt (longer than the vision tokens, every
+    gate 0.5); the float32 check on one group of 5 layers with every
+    gate 0.5.
+20. ``serve_audio``: musicgen-large whole (48 layers, [B, S, 4] codebook
+    prompts, [B, 16, 4] tokens), served as above; the float32 check.
+21. ``kernels``: each kernel with its launches on the main paths (K1's
+    summed over its path phases, K2's over ``serve_hymba``,
+    ``train_hymba`` and the four family phases, K3's over
+    ``serve_hymba`` and ``train_hymba``; K1 and K2 also by route); needs
+    every kernel's check phase and the phases of its paths in the same
+    run.
 
 Every simulator phase but ``survey_engine``'s eager turns, the eager
 turn of ``static_full_width`` and the input recording of
@@ -196,7 +236,8 @@ PHASES = ("env", "build", "kernel_waterfill", "golden", "survey_mini",
           "survey_agreement", "survey_dataset", "survey_full_width",
           "survey_engine", "static_golden", "static_full_width", "genetic_vec",
           "kernel_flash_attention", "kernel_ssd", "serve_hymba",
-          "train_hymba", "kernels")
+          "train_hymba", "serve_dense", "serve_moe", "serve_vision",
+          "serve_audio", "kernels")
 
 # the recorded dynamic rows of BENCH_PR7.json (reference package, CPU)
 GOLDEN = {
@@ -1409,12 +1450,37 @@ ATTN_CASES = (
     ("qwen3_d128_decode", 2, 64, 8, 1, 520, 128, 513, 0, True, True),
     ("stablelm_d160_prefill", 2, 32, 8, 512, 512, 160, 512, 0, True, True),
     ("stablelm_d160_decode", 2, 32, 8, 1, 520, 160, 513, 0, True, True),
+    # the served families' own shapes (batch 4, prompt 1536, the KV
+    # cache of a 16-token generation): chatglm3-6b (group 16), mixtral
+    # (group 6, window 4096), musicgen (MHA at D 64), llama-3.2-vision's
+    # cross-attention over 1600 vision tokens (non-causal) and its
+    # 2048-token prompt (Sq > kv_len)
+    ("chatglm3_g16_prefill", 4, 32, 2, 1536, 1552, 128, 1536, 0, True,
+     True),
+    ("chatglm3_g16_decode", 4, 32, 2, 1, 1552, 128, 1537, 0, True, True),
+    ("mixtral_g6_prefill", 4, 48, 8, 1536, 1552, 128, 1536, 4096, True,
+     True),
+    ("mixtral_g6_decode", 4, 48, 8, 1, 1552, 128, 1537, 4096, True, True),
+    ("musicgen_mha_prefill", 4, 32, 32, 1536, 1552, 64, 1536, 0, True,
+     True),
+    ("musicgen_mha_decode", 4, 32, 32, 1, 1552, 64, 1537, 0, True, True),
+    ("cross_s1600_prefill", 4, 32, 8, 1536, 1600, 128, 1600, 0, False,
+     True),
+    ("cross_s1600_decode", 4, 32, 8, 1, 1600, 128, 1600, 0, False, True),
+    ("cross_sq2048_s1600", 4, 32, 8, 2048, 1600, 128, 1600, 0, False,
+     True),
 )
 ATTN_PATH = ("prefill_w1024", "prefill_w0", "decode_w1024", "decode_w0",
              "train_w1024", "train_w0")
-# timed beside the path's cases: the head dims 128 and 160
+# timed beside the path's cases: the head dims 128 and 160, the served
+# families' shapes
 ATTN_TIMED = ATTN_PATH + ("qwen3_d128_prefill", "qwen3_d128_decode",
-                          "stablelm_d160_prefill", "stablelm_d160_decode")
+                          "stablelm_d160_prefill", "stablelm_d160_decode",
+                          "chatglm3_g16_prefill", "chatglm3_g16_decode",
+                          "mixtral_g6_prefill", "mixtral_g6_decode",
+                          "musicgen_mha_prefill", "musicgen_mha_decode",
+                          "cross_s1600_prefill", "cross_s1600_decode",
+                          "cross_sq2048_s1600")
 # bfloat16 only: the edges of the tensor-core (Sq > 1) and split (Sq 1)
 # routes
 ATTN_EDGE_CASES = (
@@ -2172,6 +2238,442 @@ def phase_train_hymba(seed=0, batch=4, seq=2048):
     return launches, routes
 
 
+# ------------------------------------------------------- serve families
+# the families that phases 17-20 serve, each at full width (the MoE
+# models cut in depth: one card holds no 281 or 204 GB model)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1536, 16
+# the float32 kernels-vs-plain check: depth 2 (the vision model one group
+# of 5), batch 2, prompt 512, 4 teacher-forced decode steps; logits
+# within 1e-3 as serve_hymba's, greedy tokens equal
+CHECK_LAYERS, CHECK_BATCH, CHECK_PROMPT, CHECK_STEPS = 2, 2, 512, 4
+MOE_LAYERS = 8
+RING_STEPS = 32
+VISION_LONG_PROMPT = 2048
+GATE = 0.5
+
+
+def _free():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _teacher_forced(model, prompts, teacher, vision=None, impl="auto",
+                    cache_len=None):
+    """Prefill ``prompts``, then decode the ``teacher`` tokens one by one:
+    the logits of each step (prefill's last position first)."""
+    from repro_torch.models import decode_step, prefill
+    S, n = prompts.shape[1], teacher.shape[1]
+    logits, cache, pos = prefill(model, prompts, impl=impl, vision=vision,
+                                 cache_len=cache_len or S + n)
+    # a copy: the last position's view would keep all S positions' logits
+    outs = [logits.clone()]
+    for i in range(n):
+        logits, cache, pos = decode_step(model, teacher[:, i:i + 1], cache,
+                                         pos, impl=impl)
+        outs.append(logits)
+    return outs
+
+
+def _serve_model(cfg, seed=0):
+    """``launch.serve.serve`` of ``cfg`` through the kernels (cold: the
+    first call on a new model), then a warm ``generate`` of the same
+    prompts on the same weights.  The main path's K2 counts are zeroed
+    just before the cold run and read just after it.  Returns (row,
+    result of the cold run, K2 launches, K2 routes)."""
+    import torch
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.launch import serve
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    batch, prompt, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    FA.reset()
+    t0 = time.perf_counter()
+    res = serve.serve(cfg, batch=batch, prompt_len=prompt, gen=gen,
+                      device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = FA.count, dict(FA.routes)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    warm = serve.generate(res["model"], res["prompts"], gen, res["vision"])
+    tokens = res["tokens"]
+    cfg = res["cfg"]
+    row = dict(arch=cfg.name, layers=cfg.n_layers,
+               cross_layers=(cfg.n_layers // cfg.cross_attn_every
+                             if cfg.cross_attn_every else 0),
+               params=cfg.param_count(),
+               params_gb_bf16=cfg.param_count() * 2 / 1e9,
+               dtype=cfg.dtype, kv_cache_dtype=cfg.kv_cache_dtype,
+               moe_dispatch=cfg.moe_dispatch if cfg.moe_experts else None,
+               batch=batch, prompt=prompt, gen=gen,
+               prefill_ms=dict(cold=res["prefill_ms"],
+                               warm=warm["prefill_ms"]),
+               decode_ms_per_step=dict(cold=res["decode_ms_per_token"],
+                                       warm=warm["decode_ms_per_token"]),
+               tokens_per_s=dict(cold=res["tokens_per_s"],
+                                 warm=warm["tokens_per_s"]),
+               cold_wall_s=wall, peak_mem_gb=peak,
+               k2_launches=launches, k2_routes=routes,
+               # every attention layer (self and cross) once at prefill
+               # and once a decode step
+               k2_routes_expected=dict(tc=cfg.n_layers,
+                                       split=cfg.n_layers * gen, f32=0),
+               warm_same_tokens=bool(torch.equal(warm["tokens"], tokens)),
+               tokens_shape=list(tokens.shape),
+               tokens_in_vocab=bool((tokens >= 0).all()
+                                    and (tokens < cfg.vocab_size).all()),
+               first_tokens=tokens[0, :6].tolist())
+    row["ok"] = (routes == row["k2_routes_expected"]
+                 and launches == cfg.n_layers * (gen + 1)
+                 and row["tokens_in_vocab"] and row["warm_same_tokens"]
+                 and tokens.shape[:2] == (batch, gen))
+    return row, res, launches, routes
+
+
+def _f32_check(cfg, seed=0, gate=None, model_cfgs=None):
+    """``cfg`` in float32 cut to ``CHECK_LAYERS`` layers (``cfg``'s own
+    depth when it is already cut), prefill and ``CHECK_STEPS``
+    teacher-forced decode steps through the kernels and through the
+    plain versions on the card: logits within atol/rtol 1e-3 and equal
+    greedy tokens, K2 on the ``f32`` route only.  ``gate``: every cross
+    layer's gate; ``model_cfgs``: configs (of the same weights) to check
+    in turn, default ``cfg`` alone."""
+    import torch
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    dev = torch.device("cuda")
+    _free()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = init_params(cfg, g, device=dev)
+    if gate is not None:
+        for layer in model.cross_layers:
+            layer.attn["gate"].data.fill_(gate)
+    toks, vision = serve.make_inputs(cfg, CHECK_BATCH,
+                                     CHECK_PROMPT + CHECK_STEPS, g, dev)
+    prompts, teacher = toks[:, :CHECK_PROMPT], toks[:, CHECK_PROMPT:]
+    rows, ok = [], True
+    for mcfg in model_cfgs or [cfg]:
+        model.cfg = mcfg
+        runs = {}
+        for impl in ("auto", "torch"):
+            FA.reset()
+            runs[impl] = (_teacher_forced(model, prompts, teacher, vision,
+                                          impl=impl), FA.count,
+                          dict(FA.routes))
+        steps = []
+        for i, (a, b) in enumerate(zip(runs["auto"][0], runs["torch"][0])):
+            err, close = _close(a, b, 1e-3, 1e-3)
+            steps.append(dict(step=i, max_abs=err, close=close,
+                              greedy_equal=bool(torch.equal(
+                                  a.argmax(-1), b.argmax(-1))),
+                              logit_absmax=float(b.abs().max())))
+        n = mcfg.n_layers * (CHECK_STEPS + 1)
+        good = (all(s["close"] and s["greedy_equal"] for s in steps)
+                and runs["auto"][1:] == (n, dict(tc=0, split=0, f32=n))
+                and runs["torch"][1] == 0)
+        rows.append(dict(layers=mcfg.n_layers, batch=CHECK_BATCH,
+                         prompt=CHECK_PROMPT, steps=CHECK_STEPS,
+                         moe_dispatch=(mcfg.moe_dispatch
+                                       if mcfg.moe_experts else None),
+                         gate=gate, kernel_launch_routes=runs["auto"][2],
+                         max_abs=max(s["max_abs"] for s in steps),
+                         worst_step=max(steps, key=lambda s: s["max_abs"]),
+                         ok=good))
+        ok = ok and good
+    return rows, ok, model
+
+
+def _family_phase(phase, runs, checks):
+    """Serve each config of ``runs`` (bf16, through the kernels) with its
+    extra checks, then each float32 check of ``checks``; prints one line
+    for the phase and fails it on any check.  ``runs``: (cfg, extra)
+    where ``extra(row, res)`` adds fields to the row and returns whether
+    they pass; ``checks``: (name, thunk returning (rows, ok, model)).
+    Returns the main path's K2 launches and routes."""
+    import torch
+    t0 = time.perf_counter()
+    rows, f32, launches, routes, ok = [], {}, 0, None, True
+    try:
+        for cfg, extra in runs:
+            row, res, n, rt = _serve_model(cfg)
+            launches += n
+            routes = rt if routes is None else {
+                r: routes[r] + rt[r] for r in routes}
+            if extra is not None:
+                row["ok"] = extra(row, res) and row["ok"]
+            rows.append(row)
+            ok = ok and row["ok"]
+            del res
+            _free()
+            if not ok:
+                break
+        for name, thunk in checks if ok else ():
+            got, good, model = thunk()
+            f32[name] = got
+            ok = ok and good
+            del model
+            _free()
+    except Exception:
+        emit(phase, card=CARD, models=rows, f32=f32, ok=False,
+             wall_s=time.perf_counter() - t0)
+        raise
+    emit(phase, card=CARD, models=rows, f32=f32, ok=ok,
+         wall_s=time.perf_counter() - t0)
+    if not ok:
+        raise AssertionError(f"{phase}: a check failed (see its line)")
+    torch.cuda.synchronize()
+    return launches, routes
+
+
+def _cut(cfg, layers):
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def _int8_error(model, cfg, prompts, teacher, vision=None):
+    """The largest logit difference of the int8 KV cache from the
+    activation-type cache on the same weights, teacher-forced, and the
+    logits' scale."""
+    model.cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    int8 = _teacher_forced(model, prompts, teacher, vision)
+    model.cfg = dataclasses.replace(cfg, kv_cache_dtype="none")
+    full = _teacher_forced(model, prompts, teacher, vision)
+    model.cfg = cfg
+    scale = max(float(f.float().abs().max()) for f in full)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(int8, full))
+    return err, scale
+
+
+def _int8_check(row, res):
+    """The int8 KV cache on the same weights: a timed greedy serve of the
+    same prompts (K2 routes as the bf16 cache's, tokens in the
+    vocabulary), and, teacher-forced on the bf16 serve's tokens, how far
+    its logits are from the bf16 cache's (reported; the reference's
+    bound is held at its own depth and dtype in ``_qwen3_f32``)."""
+    import torch
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.launch import serve
+    model, cfg = res["model"], res["cfg"]
+    model.cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    FA.reset()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve.generate(model, res["prompts"], SERVE_GEN, res["vision"])
+    routes = dict(FA.routes)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    model.cfg = cfg
+    err, scale = _int8_error(model, cfg, res["prompts"],
+                             res["tokens"][:, :CHECK_STEPS])
+    toks = run["tokens"]
+    row["int8"] = dict(
+        prefill_ms=run["prefill_ms"],
+        decode_ms_per_step=run["decode_ms_per_token"],
+        tokens_per_s=run["tokens_per_s"], peak_mem_gb=peak,
+        k2_routes=routes, max_abs_vs_bf16_cache=err, logit_scale=scale,
+        greedy_agree=float((toks == res["tokens"]).float().mean()),
+        tokens_in_vocab=bool((toks >= 0).all()
+                             and (toks < cfg.vocab_size).all()))
+    return routes == row["k2_routes_expected"] and \
+        row["int8"]["tokens_in_vocab"]
+
+
+def _qwen3_f32():
+    """The float32 check of qwen3-32b with the activation-type and the
+    int8 KV cache (kernels vs plain), then the int8 cache's logits
+    against the float32 cache's through the kernels at the depth and
+    type of the reference's own check (2 layers, float32;
+    ``tests/test_models.py``): within 0.05 x the logits' scale."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = _cut(get_config("qwen3-32b", dtype="float32"), CHECK_LAYERS)
+    rows, ok, model = _f32_check(cfg, model_cfgs=[
+        cfg, dataclasses.replace(cfg, kv_cache_dtype="int8")])
+    g = torch.Generator(device="cuda").manual_seed(4)
+    toks, _ = serve.make_inputs(cfg, CHECK_BATCH,
+                                CHECK_PROMPT + CHECK_STEPS, g,
+                                torch.device("cuda"))
+    err, scale = _int8_error(model, cfg, toks[:, :CHECK_PROMPT],
+                             toks[:, CHECK_PROMPT:])
+    int8 = dict(max_abs_vs_f32_cache=err, logit_scale=scale,
+                bound=0.05 * max(scale, 1.0))
+    rows.append(dict(int8_f32=int8))
+    return rows, ok and err < int8["bound"], model
+
+
+def _ring_compare(model, cfg, g, atol, rtol, bound):
+    """Batch 1, a prompt that fills the window (4096 tokens for mixtral),
+    and ``RING_STEPS`` teacher-forced decode steps that wrap the ring:
+    each step's logits against a full-length cache's."""
+    import torch
+    from repro_torch.launch import serve
+    W = cfg.window
+    toks, _ = serve.make_inputs(cfg, 1, W + RING_STEPS, g,
+                                torch.device("cuda"))
+    prompts, teacher = toks[:, :W], toks[:, W:]
+    model.cfg = dataclasses.replace(cfg, window_ring_cache=True)
+    ring = _teacher_forced(model, prompts, teacher, cache_len=W)
+    model.cfg = cfg
+    full = _teacher_forced(model, prompts, teacher)
+    scale = max(float(f.float().abs().max()) for f in full)
+    errs = [_close(a.float(), b.float(), atol, rtol)
+            for a, b in zip(ring, full)]
+    agree = [bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+             for a, b in zip(ring, full)]
+    worst = max(e for e, _ in errs)
+    return dict(batch=1, prompt=W, steps=RING_STEPS, cache=W,
+                max_abs=worst, step_max_abs=[e for e, _ in errs],
+                logit_scale=scale, atol=atol, rtol=rtol, greedy_equal_steps=sum(agree),
+                within=all(c for _, c in errs)
+                and (bound is None or worst < bound * max(scale, 1.0)),
+                all_greedy_equal=all(agree))
+
+
+def _ring_check(row, res):
+    """The ring cache on the bf16 mixtral weights against the
+    full-length cache: each step's largest logit difference and the
+    greedy agreement, reported.  Not held to a bound: the two caches sum
+    the same keys in another order, and in bfloat16 that moves the
+    router's logits enough to flip a top-2 choice now and then, which
+    moves that token's logits by whole units (PERF.md §6); the ring is
+    held in float32 in ``_mixtral_f32``."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(1)
+    row["ring_bf16"] = _ring_compare(res["model"], res["cfg"], g, 5e-2,
+                                     5e-2, None)
+    return all(math.isfinite(e) for e in row["ring_bf16"]["step_max_abs"])
+
+
+def _moe_turns(row, res):
+    """Both dispatches on the same weights, in turns after the cold dense
+    run: gather, gather, dense (capacity 1.25 drops overflow tokens, so
+    the two dispatches' tokens may differ: their agreement is
+    reported)."""
+    from repro_torch.launch import serve
+    model, cfg = res["model"], res["cfg"]
+    turns = []
+    for dispatch in ("gather", "gather", "dense"):
+        model.cfg = dataclasses.replace(cfg, moe_dispatch=dispatch)
+        run = serve.generate(model, res["prompts"], SERVE_GEN)
+        turns.append(dict(
+            moe_dispatch=dispatch, prefill_ms=run["prefill_ms"],
+            decode_ms_per_step=run["decode_ms_per_token"],
+            tokens_per_s=run["tokens_per_s"],
+            greedy_agree_with_cold_dense=float(
+                (run["tokens"] == res["tokens"]).float().mean())))
+    model.cfg = cfg
+    row["dispatch_turns"] = turns
+    return turns[-1]["greedy_agree_with_cold_dense"] == 1.0
+
+
+def phase_serve_dense():
+    """chatglm3-6b, stablelm-12b and qwen3-32b whole, then the int8 KV
+    cache on the qwen3-32b weights; the float32 check of each."""
+    from repro_torch.configs import get_config
+    runs = [(get_config("chatglm3-6b"), None),
+            (get_config("stablelm-12b"), None),
+            (get_config("qwen3-32b"), _int8_check)]
+    checks = [(a, functools.partial(_f32_check, _cut(get_config(
+        a, dtype="float32"), CHECK_LAYERS)))
+        for a in ("chatglm3-6b", "stablelm-12b")]
+    checks.append(("qwen3-32b", _qwen3_f32))
+    return _family_phase("serve_dense", runs, checks)
+
+
+def _mixtral_f32():
+    """The float32 check of mixtral (both dispatches on one set of
+    weights), then the ring at full width in float32 against the
+    full-length cache within the reference's own bound (5e-4 x the
+    logits' scale) with equal greedy tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = _cut(get_config("mixtral-8x22b", dtype="float32"), CHECK_LAYERS)
+    rows, ok, model = _f32_check(cfg, model_cfgs=[
+        cfg, dataclasses.replace(cfg, moe_dispatch="gather")])
+    g = torch.Generator(device="cuda").manual_seed(2)
+    ring = _ring_compare(model, cfg, g, 1e-3, 1e-3, 5e-4)
+    rows.append(dict(ring_f32=ring))
+    return rows, ok and ring["within"] and ring["all_greedy_equal"], model
+
+
+def phase_serve_moe():
+    """mixtral-8x22b and llama4-scout at full width, cut to
+    ``MOE_LAYERS`` layers; both dispatches in turns and the ring cache on
+    the mixtral weights; the float32 check of each."""
+    from repro_torch.configs import get_config
+
+    def mixtral_extra(row, res):
+        return _moe_turns(row, res) and _ring_check(row, res)
+
+    runs = [(_cut(get_config("mixtral-8x22b"), MOE_LAYERS), mixtral_extra),
+            (_cut(get_config("llama4-scout-17b-a16e"), MOE_LAYERS), None)]
+    checks = [("mixtral-8x22b", _mixtral_f32),
+              ("llama4-scout-17b-a16e", functools.partial(
+                  _f32_check, _cut(get_config("llama4-scout-17b-a16e",
+                                              dtype="float32"),
+                                   CHECK_LAYERS)))]
+    return _family_phase("serve_moe", runs, checks)
+
+
+def _long_prompt(row, res):
+    """One prompt of ``VISION_LONG_PROMPT`` tokens, longer than the 1600
+    vision tokens (K2 ``tc`` with Sq > kv_len), every gate 0.5."""
+    import torch
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.launch import serve
+    model, cfg = res["model"], res["cfg"]
+    for layer in model.cross_layers:
+        layer.attn["gate"].data.fill_(GATE)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    prompts, vision = serve.make_inputs(cfg, SERVE_BATCH,
+                                        VISION_LONG_PROMPT, g,
+                                        torch.device("cuda"))
+    FA.reset()
+    run = serve.generate(model, prompts, SERVE_GEN, vision)
+    toks = run["tokens"]
+    row["long_prompt"] = dict(
+        prompt=VISION_LONG_PROMPT, cross_tokens=cfg.cross_tokens,
+        gate=GATE, prefill_ms=run["prefill_ms"],
+        decode_ms_per_step=run["decode_ms_per_token"],
+        tokens_per_s=run["tokens_per_s"], k2_routes=dict(FA.routes),
+        tokens_in_vocab=bool((toks >= 0).all()
+                             and (toks < cfg.vocab_size).all()))
+    return (row["long_prompt"]["tokens_in_vocab"]
+            and row["long_prompt"]["k2_routes"] == row["k2_routes_expected"])
+
+
+def phase_serve_vision():
+    """llama-3.2-vision-11b whole (32 self and 8 cross layers) over the
+    vision stub, then a prompt longer than the vision tokens; the float32
+    check on one group of 5 layers with every gate 0.5."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama-3.2-vision-11b")
+    check = _cut(get_config("llama-3.2-vision-11b", dtype="float32"),
+                 cfg.cross_attn_every)
+    return _family_phase(
+        "serve_vision", [(cfg, _long_prompt)],
+        [("llama-3.2-vision-11b",
+          functools.partial(_f32_check, check, gate=GATE))])
+
+
+def phase_serve_audio():
+    """musicgen-large whole ([B, S, 4] codebook prompts, [B, gen, 4]
+    tokens); the float32 check."""
+    from repro_torch.configs import get_config
+    return _family_phase(
+        "serve_audio", [(get_config("musicgen-large"), None)],
+        [("musicgen-large", functools.partial(_f32_check, _cut(get_config(
+            "musicgen-large", dtype="float32"), CHECK_LAYERS)))])
+
+
+FAMILY_PHASES = {"serve_dense": phase_serve_dense,
+                 "serve_moe": phase_serve_moe,
+                 "serve_vision": phase_serve_vision,
+                 "serve_audio": phase_serve_audio}
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2241,6 +2743,13 @@ def main(argv=None):
             launches[name] = launches.get(name, 0) + n
         k2_routes = train_routes if k2_routes is None else {
             r: k2_routes[r] + train_routes[r] for r in k2_routes}
+    for phase, run in FAMILY_PHASES.items():
+        if phase in phases:
+            n, rt = run()
+            launches["flash_attention"] = launches.get("flash_attention",
+                                                       0) + n
+            k2_routes = rt if k2_routes is None else {
+                r: k2_routes[r] + rt[r] for r in k2_routes}
     kernels = []
     for name, res, src, replaces, lib in (
             ("waterfill", wf, "waterfill.cu",

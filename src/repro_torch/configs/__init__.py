@@ -1,28 +1,31 @@
-"""Architecture registry of the port: ``--arch <id>`` selectable configs.
-
-Ported families: hymba-1.5b, mamba2-130m and gemma3-1b (their serving
-paths need nothing beyond the port's LM slice).  The other families of
-the reference registry raise ``NotImplementedError``; ROADMAP.md lists
-what they wait for (MoE, vision cross-attention, the audio frontend).
-"""
+"""Architecture registry of the port: ``--arch <id>`` selectable configs,
+the ten families of the reference registry (each config a copy of the
+reference's)."""
 from __future__ import annotations
 
 import dataclasses
 
 from ..models.config import ModelConfig
-from . import gemma3_1b, hymba_1_5b, mamba2_130m
+from . import (chatglm3_6b, gemma3_1b, hymba_1_5b, llama32_vision_11b,
+               llama4_scout_17b_a16e, mamba2_130m, mixtral_8x22b,
+               musicgen_large, qwen3_32b, stablelm_12b)
 from .shapes import SHAPE_NAMES, SHAPES, ShapeSpec, shape_applicable
 
 _MODULES = {
     "hymba-1.5b": hymba_1_5b,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
+    "mixtral-8x22b": mixtral_8x22b,
     "gemma3-1b": gemma3_1b,
+    "chatglm3-6b": chatglm3_6b,
+    "stablelm-12b": stablelm_12b,
+    "qwen3-32b": qwen3_32b,
+    "llama-3.2-vision-11b": llama32_vision_11b,
     "mamba2-130m": mamba2_130m,
+    "musicgen-large": musicgen_large,
 }
 
-# families of the reference registry whose paths are not ported yet
-NOT_PORTED = ("llama4-scout-17b-a16e", "mixtral-8x22b", "chatglm3-6b",
-              "stablelm-12b", "qwen3-32b", "llama-3.2-vision-11b",
-              "musicgen-large")
+# families of the reference registry whose paths are not ported: none
+NOT_PORTED = ()
 
 ARCH_NAMES = list(_MODULES)
 
@@ -30,10 +33,6 @@ ARCH_NAMES = list(_MODULES)
 def _module(arch: str):
     if arch in _MODULES:
         return _MODULES[arch]
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet (see "
-            f"ROADMAP.md, Queue A); ported: {ARCH_NAMES}")
     raise KeyError(f"unknown arch {arch!r}; ported: {ARCH_NAMES}")
 
 

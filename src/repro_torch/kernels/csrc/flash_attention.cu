@@ -839,9 +839,12 @@ int launch_combine(const float* parts, void* o, long long o_b,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int B, int Hq, int Hkv, int Sq, int Skv, int kv_len) {
+// a non-causal call may have Sq > kv_len: its queries sit at negative
+// positions, which only a window (absent from cross-attention) would read
+bool bad_shape(int B, int Hq, int Hkv, int Sq, int Skv, int kv_len,
+               int causal) {
   return B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Hq % Hkv != 0 ||
-         kv_len <= 0 || kv_len > Skv || Sq > kv_len;
+         kv_len <= 0 || kv_len > Skv || (causal && Sq > kv_len);
 }
 
 }  // namespace
@@ -861,16 +864,17 @@ bool bad_shape(int B, int Hq, int Hkv, int Sq, int Skv, int kv_len) {
 // the (b, h, s) strides of q, k, v and o in that order; the head dim is
 // contiguous.  Each launches on `stream`, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).  The caller
-// guarantees B, Hq, Hkv, Sq > 0, Hq % Hkv == 0, 0 < kv_len <= Skv and
-// Sq <= kv_len; the bf16 routes also need 16-byte aligned q/k/v rows
-// (data pointers 16-byte aligned, strides multiples of 8 elements).
+// guarantees B, Hq, Hkv, Sq > 0, Hq % Hkv == 0, 0 < kv_len <= Skv and,
+// when causal, Sq <= kv_len; the bf16 routes also need 16-byte aligned
+// q/k/v rows (data pointers 16-byte aligned, strides multiples of 8
+// elements).
 
 // Route f32: float32 q, k, v, o.
 extern "C" int flash_attention_f32_launch(
     const void* q, const void* k, const void* v, void* o,
     const long long* strides, int B, int Hq, int Hkv, int Sq, int Skv,
     int D, int kv_len, int causal, int window, float scale, void* stream) {
-  if (bad_shape(B, Hq, Hkv, Sq, Skv, kv_len))
+  if (bad_shape(B, Hq, Hkv, Sq, Skv, kv_len, causal))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FA_DISPATCH_D(D, launch_f32_d<kD>(q, k, v, o, strides, B, Hq, Hkv, Sq,
@@ -882,7 +886,7 @@ extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, void* o,
     const long long* strides, int B, int Hq, int Hkv, int Sq, int Skv,
     int D, int kv_len, int causal, int window, float scale, void* stream) {
-  if (bad_shape(B, Hq, Hkv, Sq, Skv, kv_len) ||
+  if (bad_shape(B, Hq, Hkv, Sq, Skv, kv_len, causal) ||
       static_cast<long long>(B) * Hq > 65535)   // grid.y
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -900,7 +904,7 @@ extern "C" int flash_attention_split_launch(
     const long long* strides, float* parts, int B, int Hq, int Hkv,
     int Skv, int D, int kv_len, int lo, int per, int splits, float scale,
     void* stream) {
-  if (bad_shape(B, Hq, Hkv, 1, Skv, kv_len) || splits <= 0 || per <= 0 ||
+  if (bad_shape(B, Hq, Hkv, 1, Skv, kv_len, 1) || splits <= 0 || per <= 0 ||
       lo < 0 || lo + static_cast<long long>(splits - 1) * per >= kv_len)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

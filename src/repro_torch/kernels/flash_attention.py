@@ -133,7 +133,7 @@ def split_bounds(lo, per, splits, kv_len):
             for s in range(splits)]
 
 
-def _check(q, k, v, kv_len):
+def _check(q, k, v, kv_len, causal=True):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q must be [B, Hq, Sq, D] and "
                          f"k, v one [B, Hkv, Skv, D] shape, got "
@@ -146,9 +146,12 @@ def _check(q, k, v, kv_len):
                          f"{tuple(k.shape)} disagree (batch, head dim, or "
                          f"Hq not a multiple of Hkv)")
     kv_len = Skv if kv_len is None else int(kv_len)
-    if not Sq <= kv_len <= Skv:
-        raise ValueError(f"flash_attention: need Sq <= kv_len <= Skv, got "
-                         f"Sq={Sq}, kv_len={kv_len}, Skv={Skv}")
+    # a causal query must sit inside the valid prefix; non-causal queries
+    # (cross-attention: a prompt longer than the encoder's tokens) need not
+    if not 0 < kv_len <= Skv or (causal and Sq > kv_len):
+        raise ValueError(f"flash_attention: need 0 < kv_len <= Skv, and "
+                         f"Sq <= kv_len when causal, got Sq={Sq}, "
+                         f"kv_len={kv_len}, Skv={Skv}, causal={causal}")
     if not q.device == k.device == v.device:
         raise ValueError("flash_attention: tensors on several devices")
     return kv_len
@@ -211,7 +214,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     """Attention output ``[B, Hq, Sq, D]`` in q's dtype.  ``window > 0``:
     query at position ``p`` sees keys in ``(p - window, p]``;
     ``kv_len``: valid key prefix (default ``Skv``)."""
-    kv_len = _check(q, k, v, kv_len)
+    kv_len = _check(q, k, v, kv_len, causal)
     window = int(window)
     B, Hq, Sq, D = q.shape
     if scale is None:

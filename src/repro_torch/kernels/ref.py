@@ -27,7 +27,7 @@ def attention_mask(Sq, Skv, *, causal=True, window=0, kv_len=None,
     valid = Skv if kv_len is None else int(kv_len)
     q_pos = torch.arange(Sq, device=device)[:, None] + (valid - Sq)
     k_pos = torch.arange(Skv, device=device)[None, :]
-    mask = k_pos < valid
+    mask = torch.broadcast_to(k_pos < valid, (Sq, Skv))
     if causal:
         mask = mask & (k_pos <= q_pos)
     if window > 0:

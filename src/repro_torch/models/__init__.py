@@ -1,7 +1,9 @@
-"""LM stack of the port: the training path (loss, train step with
-gradient accumulation and remat) and the serving path (prefill and
-decode) of the hybrid attention + Mamba-2 decoder, with attention (K2)
-and the SSD scan (K3) as hand-written CUDA kernels on the card."""
+"""LM stack of the port: the serving path (prefill and decode) of all ten
+architecture families (dense, MoE, hybrid attention + Mamba-2, vision
+cross-attention, the audio frontend; int8 and ring KV caches) and the
+training path (loss, train step with gradient accumulation and remat)
+of the text families, with attention (K2) and the SSD scan (K3) as
+hand-written CUDA kernels on the card."""
 from .config import ModelConfig
 from .convert import opt_state_from_jax, opt_state_to_jax, \
     params_from_jax, params_to_jax

@@ -7,7 +7,9 @@ layout and the port, both ways.
 values; ``params_to_jax(model)`` is its inverse.  Layouts are the same on
 both sides, so the conversion is a copy: the layer stack
 ``blocks/<group>/<name> [L, ...]`` is split into
-``layers.<i>.<group>.<name>`` and stacked back.  Types must match
+``layers.<i>.<group>.<name>`` and stacked back, and the vision family's
+``cross_blocks/<group>/<name> [G, ...]`` likewise into
+``cross_layers.<g>.<group>.<name>``.  Types must match
 exactly.  numpy has no bfloat16 of its own: the reference's bfloat16
 arrays (the ``ml_dtypes`` extension type, which ``torch.from_numpy``
 rejects) are carried over bit for bit through ``uint16``, and the port
@@ -23,7 +25,11 @@ import torch
 from ..device import resolve_device
 from ..optim import AdamState
 from .config import ModelConfig
-from .transformer import Transformer
+from .transformer import Transformer, n_cross_layers
+
+# the reference's layer stacks and the port's module lists
+_STACKS = {"blocks": "layers", "cross_blocks": "cross_layers"}
+_LISTS = {v: k for k, v in _STACKS.items()}
 
 
 def to_tensor(a, dtype=None) -> torch.Tensor:
@@ -52,19 +58,20 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def _flatten(tree, cfg):
     """The reference's nested tree as ``{port name: array}``."""
-    if "cross_blocks" in tree:
-        raise NotImplementedError("cross-attention blocks are not ported "
-                                  "to repro_torch yet (ROADMAP.md)")
-    flat = {k: v for k, v in tree.items() if k != "blocks"}
-    for key, val in tree.get("blocks", {}).items():
-        groups = val.items() if isinstance(val, dict) else [(None, val)]
-        for name, arr in groups:
-            if len(arr) != cfg.n_layers:
-                raise ValueError(f"blocks/{key}/{name}: {len(arr)} layers, "
-                                 f"config has {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                path = f"layers.{i}.{key}" + (f".{name}" if name else "")
-                flat[path] = arr[i]
+    n_cross = n_cross_layers(cfg)
+    sizes = {"blocks": cfg.n_layers - n_cross, "cross_blocks": n_cross}
+    flat = {k: v for k, v in tree.items() if k not in _STACKS}
+    for stack, port in _STACKS.items():
+        for key, val in tree.get(stack, {}).items():
+            groups = val.items() if isinstance(val, dict) else [(None, val)]
+            for name, arr in groups:
+                if len(arr) != sizes[stack]:
+                    raise ValueError(f"{stack}/{key}/{name}: {len(arr)} "
+                                     f"layers, config has {sizes[stack]}")
+                for i in range(sizes[stack]):
+                    path = f"{port}.{i}.{key}" + (f".{name}" if name
+                                                  else "")
+                    flat[path] = arr[i]
     return flat
 
 
@@ -75,12 +82,13 @@ def _unflatten(named):
     tree, stacks = {}, {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            stacks.setdefault(tuple(parts[2:]), {})[int(parts[1])] = t
+        if parts[0] in _LISTS:
+            stacks.setdefault((_LISTS[parts[0]], *parts[2:]), {})[
+                int(parts[1])] = t
         else:
             tree[name] = t.detach().cpu()
     for path, per_layer in stacks.items():
-        node = tree.setdefault("blocks", {})
+        node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = torch.stack([per_layer[i].detach().cpu()
@@ -95,7 +103,8 @@ def _map(fn, tree):
 
 def param_tree(model: Transformer):
     """The model's parameters as the reference's nested tree of host
-    tensors (``blocks/attn/wq [L, ...]`` ...)."""
+    tensors (``blocks/attn/wq [L, ...]``, ``cross_blocks/attn/gate
+    [G]`` ...)."""
     return _unflatten(dict(model.named_parameters()))
 
 

@@ -22,12 +22,13 @@ def softmax_cross_entropy(logits, labels):
 
 def make_loss_fn(cfg: ModelConfig, impl="auto"):
     """``loss_fn(model, batch)``: next-token cross entropy of
-    ``batch["tokens"] [B, S]`` (the text frontend; the audio frontend is
-    not ported)."""
+    ``batch["tokens"] [B, S]`` (the text frontend; the audio loss and
+    the vision batch are not ported: training the vision and audio
+    families waits for ROADMAP.md, Queue A)."""
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend's loss is not ported "
-            f"to repro_torch yet (ROADMAP.md)")
+            f"to repro_torch yet (ROADMAP.md, Queue A)")
 
     def loss_fn(model, batch):
         tokens = batch["tokens"]
@@ -88,8 +89,8 @@ def make_train_step(cfg: ModelConfig, optimizer, accum: int = 1,
 
 
 def make_prefill_step(cache_len=None):
-    def prefill_step(model, tokens):
-        return prefill(model, tokens, cache_len=cache_len)
+    def prefill_step(model, tokens, vision=None):
+        return prefill(model, tokens, cache_len=cache_len, vision=vision)
     return prefill_step
 
 

@@ -1,28 +1,35 @@
-"""Decoder stack of the LM slice: one ``nn.Module`` per layer in an
+"""Decoder stack of the LM stack: one ``nn.Module`` per layer in an
 ``nn.ModuleList``, the training forward pass and the serving entry
-points.
+points, for all ten architecture families of the reference registry.
 
-* ``forward(model, tokens)``                     — full-sequence logits
+* ``forward(model, tokens, vision=)``            — full-sequence logits
   (training: differentiable, each layer checkpointed per ``cfg.remat``)
-* ``prefill(model, tokens, cache_len=)``         — last-position logits
+* ``prefill(model, tokens, cache_len=, vision=)`` — last-position logits
   + cache (under ``no_grad``)
 * ``decode_step(model, tokens, cache, pos)``     — one token with a cache
   (under ``no_grad``)
 
-Each layer carries its sliding window as a Python int, since the layer
-loop is Python.  Parameters keep the reference package's layouts and
-names (``layers.<i>.attn.wq`` is the reference's ``blocks/attn/wq[i]``),
-so ``convert.params_from_jax`` is a copy.  ``impl`` picks the kernels
-(``"auto"``: the CUDA kernels on the card, their plain versions on the
-CPU; a gradient through a kernel is its plain version's, see
-``kernels/ops.py``) or the plain versions everywhere (``"torch"``).
-``cfg.remat`` follows the reference's ``_maybe_remat``: ``"none"``;
-``"full"``, each layer recomputed in the backward pass
+``tokens`` is ``[B, S]``, or ``[B, S, K]`` for the audio frontend
+(``K`` codebooks, logits ``[B, S, K, V]``); ``vision [B, T, d]`` is the
+vision stub's encoder states, read by the cross-attention layers.
+Self-attention layers (``layers``) carry their sliding window as a
+Python int, since the layer loop is Python; a vision model runs groups
+of ``cross_attn_every - 1`` of them, then one cross-attention layer
+(``cross_layers``), as the reference's two-level scan does.  Parameters
+keep the reference package's layouts and names (``layers.<i>.attn.wq``
+is the reference's ``blocks/attn/wq[i]``, ``cross_layers.<g>.attn.wq``
+its ``cross_blocks/attn/wq[g]``), so ``convert.params_from_jax`` is a
+copy.  The run-time options (the KV cache type, the ring cache, the MoE
+dispatch, remat) are read from ``model.cfg`` on every call, so they can
+be changed on the same weights with ``dataclasses.replace``.  ``impl``
+picks the kernels (``"auto"``: the CUDA kernels on the card, their plain
+versions on the CPU; a gradient through a kernel is its plain
+version's, see ``kernels/ops.py``) or the plain versions everywhere
+(``"torch"``).  ``cfg.remat`` follows the reference's ``_maybe_remat``:
+``"none"``; ``"full"``, each layer recomputed in the backward pass
 (``torch.utils.checkpoint.checkpoint``); ``"dots"``, the same but the
 outputs of matrix products without batch dims kept (``aten.mm`` /
-``addmm``, the reference's ``dots_with_no_batch_dims_saveable``).  Not
-ported (each raises ``NotImplementedError``): MoE, cross-attention, the
-vision and audio frontends, the int8 and ring KV caches.
+``addmm``, the reference's ``dots_with_no_batch_dims_saveable``).
 """
 from __future__ import annotations
 
@@ -34,26 +41,36 @@ from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
 from .config import ModelConfig
-from .layers import attention_block, check_attention_options, rms_norm, \
-    swiglu, mm
+from .layers import attention_block, einsum, mm, moe_block, rms_norm, \
+    swiglu
 from .ssm import mamba2_block, ssm_dims
 
 
-def check_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for options this slice lacks."""
-    missing = []
-    if cfg.moe_experts:
-        missing.append("MoE (moe_experts)")
-    if cfg.cross_attn_every:
-        missing.append("cross-attention (cross_attn_every)")
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
-            f"yet (ROADMAP.md)")
-    if not cfg.attn_free:
-        check_attention_options(cfg)
+def n_cross_layers(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.cross_attn_every if cfg.cross_attn_every \
+        else 0
+
+
+def self_layer_windows(cfg: ModelConfig):
+    """Window per *self* layer (cross layers removed from the
+    pattern)."""
+    k = cfg.cross_attn_every
+    return [w for i, w in enumerate(cfg.window_pattern())
+            if not k or (i + 1) % k != 0]
+
+
+def layer_order(cfg: ModelConfig):
+    """``(cross, index)`` of each layer in the order the forward pass
+    runs them: every self layer, or, with cross-attention, groups of
+    ``cross_attn_every - 1`` self layers each followed by one cross
+    layer."""
+    n_cross = n_cross_layers(cfg)
+    if not n_cross:
+        return [(False, i) for i in range(cfg.n_layers)]
+    per = cfg.cross_attn_every - 1
+    return [item for g in range(n_cross)
+            for item in [(False, g * per + j) for j in range(per)]
+            + [(True, g)]]
 
 
 def _params(shapes, dtype, device):
@@ -62,26 +79,33 @@ def _params(shapes, dtype, device):
         for n, (s, dt) in shapes.items()})
 
 
+def _attn_params(cfg, device, cross=False):
+    f32 = torch.float32
+    d, hq, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    shapes = {"wq": ((d, hq, dh), None), "wk": ((d, hk, dh), None),
+              "wv": ((d, hk, dh), None), "wo": ((hq * dh, d), None)}
+    if cfg.qk_norm:
+        shapes.update(q_norm=((dh,), f32), k_norm=((dh,), f32))
+    if cross:
+        shapes.update(gate=((), f32))
+    return _params(shapes, cfg.activation_dtype, device)
+
+
 class Layer(nn.Module):
     """One decoder layer: attention and/or Mamba-2 side by side, then the
-    MLP.  Parameters are allocated on ``device``, not initialised."""
+    MLP or the MoE block.  Parameters are allocated on ``device``, not
+    initialised."""
 
     def __init__(self, cfg: ModelConfig, window: int, device="cuda"):
         super().__init__()
         device = resolve_device(device)
         f32, act = torch.float32, cfg.activation_dtype
         d = cfg.d_model
-        self.cfg = cfg
         self.window = int(window)
         self.ln1 = nn.Parameter(torch.empty(d, dtype=f32, device=device))
-        self.attn = self.ssm = self.mlp = self.ln2 = None
+        self.attn = self.ssm = self.mlp = self.moe = self.ln2 = None
         if not cfg.attn_free:
-            hq, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-            shapes = {"wq": ((d, hq, dh), None), "wk": ((d, hk, dh), None),
-                      "wv": ((d, hk, dh), None), "wo": ((hq * dh, d), None)}
-            if cfg.qk_norm:
-                shapes.update(q_norm=((dh,), f32), k_norm=((dh,), f32))
-            self.attn = _params(shapes, act, device)
+            self.attn = _attn_params(cfg, device)
         if cfg.ssm in ("mamba2", "hybrid"):
             di, ns, nh, hd = ssm_dims(cfg)
             C = di + 2 * ns
@@ -93,12 +117,18 @@ class Layer(nn.Module):
                 "out_proj": ((di, d), None)}, act, device)
         if cfg.d_ff > 0:
             self.ln2 = nn.Parameter(torch.empty(d, dtype=f32, device=device))
-            self.mlp = _params({"w1": ((d, cfg.d_ff), None),
-                                "w3": ((d, cfg.d_ff), None),
-                                "w2": ((cfg.d_ff, d), None)}, act, device)
+            E, f = cfg.moe_experts, cfg.d_ff
+            if E:
+                self.moe = _params({"router": ((d, E), f32),
+                                    "w1": ((E, d, f), None),
+                                    "w3": ((E, d, f), None),
+                                    "w2": ((E, f, d), None)}, act, device)
+            else:
+                self.mlp = _params({"w1": ((d, f), None),
+                                    "w3": ((d, f), None),
+                                    "w2": ((f, d), None)}, act, device)
 
-    def forward(self, x, positions, cache_pos, kv_len, cache, impl):
-        cfg = self.cfg
+    def forward(self, x, positions, cache_pos, kv_len, cache, impl, cfg):
         new_cache = {}
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         y = torch.zeros_like(x)
@@ -120,38 +150,66 @@ class Layer(nn.Module):
         x = x + y
         if self.mlp is not None:
             x = x + swiglu(rms_norm(x, self.ln2, cfg.norm_eps), self.mlp)
+        elif self.moe is not None:
+            x = x + moe_block(rms_norm(x, self.ln2, cfg.norm_eps), self.moe,
+                              cfg)
         return x, new_cache
 
 
+class CrossLayer(nn.Module):
+    """One cross-attention layer of the vision family (the reference's
+    ``cross_block``): ln1 and gated cross-attention over the vision
+    input, no MLP."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.ln1 = nn.Parameter(torch.empty(cfg.d_model,
+                                            dtype=torch.float32,
+                                            device=device))
+        self.attn = _attn_params(cfg, device, cross=True)
+
+    def forward(self, x, vision, cache, impl, cfg):
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        y, kv = attention_block(
+            h, self.attn, cfg, window=0, is_cross=True, kv_source=vision,
+            cache=None if cache is None else cache["kv"], impl=impl)
+        return x + y, ({} if kv is None else {"kv": kv})
+
+
 class Transformer(nn.Module):
-    """The decoder: embedding, ``layers`` (an ``nn.ModuleList``), final
-    norm and LM head (absent when the embeddings are tied).  Parameters
+    """The decoder: embedding (``[V, d]``, audio ``[K, V, d]``),
+    ``layers`` (an ``nn.ModuleList`` of the self layers),
+    ``cross_layers`` (the vision family's cross layers; empty
+    otherwise), final norm and LM head (``[d, V]``, audio
+    ``[K, d, V]``; absent when the embeddings are tied).  Parameters
     are allocated on ``device`` (default ``"cuda"``, which raises without
     a card), not initialised."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        check_supported(cfg)
         device = resolve_device(device)
         act, d, v = cfg.activation_dtype, cfg.d_model, cfg.vocab_size
+        audio = (cfg.codebooks,) if cfg.frontend == "audio" else ()
         self.cfg = cfg
-        self.embed = nn.Parameter(torch.empty(v, d, dtype=act,
+        self.embed = nn.Parameter(torch.empty(*audio, v, d, dtype=act,
                                               device=device))
         self.layers = nn.ModuleList(
-            Layer(cfg, cfg.layer_window(i), device)
-            for i in range(cfg.n_layers))
+            Layer(cfg, w, device) for w in self_layer_windows(cfg))
+        self.cross_layers = nn.ModuleList(
+            CrossLayer(cfg, device) for _ in range(n_cross_layers(cfg)))
         self.final_norm = nn.Parameter(torch.empty(d, dtype=torch.float32,
                                                    device=device))
         self.lm_head = None
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(torch.empty(d, v, dtype=act,
+            self.lm_head = nn.Parameter(torch.empty(*audio, d, v, dtype=act,
                                                     device=device))
 
 
 # ------------------------------------------------------------------ init
 _CONSTANTS = {"ln1": 1.0, "ln2": 1.0, "final_norm": 1.0, "conv_b": 0.0,
               "A_log": 0.0, "D": 1.0, "dt_bias": -4.0, "norm": 1.0,
-              "q_norm": 1.0, "k_norm": 1.0}
+              "q_norm": 1.0, "k_norm": 1.0, "gate": 0.0}
 
 
 @torch.no_grad()
@@ -159,10 +217,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Transformer:
     """A ``Transformer`` with the reference's initialisation: dense
     weights ``0.02 * normal`` drawn in float32 and cast to the
-    activation type (``conv_w``: ``0.2 * normal``, float32); norms,
-    ``D`` ones, ``A_log``, ``conv_b`` zeros, ``dt_bias`` -4.  The draws
-    come from ``generator`` (on the same device), so they differ from
-    the reference's ``jax.random`` draws."""
+    activation type (``conv_w``: ``0.2 * normal``, float32; the MoE
+    router float32); norms, ``D`` ones, ``A_log``, ``conv_b`` and the
+    cross layers' ``gate`` zeros, ``dt_bias`` -4.  The draws come from
+    ``generator`` (on the same device), one parameter at a time, so
+    they differ from the reference's ``jax.random`` draws."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev)
     for name, p in model.named_parameters():
@@ -173,41 +232,74 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         scale = 0.2 if leaf == "conv_w" else 0.02
         w = torch.randn(p.shape, dtype=torch.float32, device=dev,
                         generator=generator)
-        p.copy_((scale * w).to(p.dtype))
+        # in place, and freed before the next draw: one float32
+        # temporary at a time (3.1 GB for qwen3-32b's embedding)
+        p.copy_(w.mul_(scale))
+        del w
     return model
 
 
 # --------------------------------------------------------------- caches
 def make_cache(cfg: ModelConfig, batch_size: int, length: int, device,
                dtype=None):
-    """Zero-initialised KV + SSM cache: one dict per layer."""
+    """Zero-initialised caches, one dict per layer in the order of
+    ``layer_order``: a self layer's KV cache ``[B, length, Hk, dh]``
+    (int8 with float32 ``k_scale``/``v_scale [B, length, Hk, 1]`` under
+    ``kv_cache_dtype="int8"``) and SSM state; a cross layer's keys and
+    values of the vision input ``[B, cross_tokens, Hk, dh]``."""
     dt = dtype or cfg.activation_dtype
+    hk, dh = cfg.n_kv_heads, cfg.d_head
 
-    def layer_cache():
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(batch_size, *shape, dtype=dtype, device=device)
+
+    def self_cache():
         c = {}
         if not cfg.attn_free:
-            hk, dh = cfg.n_kv_heads, cfg.d_head
-            c["kv"] = {
-                "k": torch.zeros(batch_size, length, hk, dh, dtype=dt,
-                                 device=device),
-                "v": torch.zeros(batch_size, length, hk, dh, dtype=dt,
-                                 device=device)}
+            if cfg.kv_cache_dtype == "int8":
+                c["kv"] = {
+                    "k": zeros(length, hk, dh, dtype=torch.int8),
+                    "v": zeros(length, hk, dh, dtype=torch.int8),
+                    "k_scale": zeros(length, hk, 1, dtype=torch.float32),
+                    "v_scale": zeros(length, hk, 1, dtype=torch.float32)}
+            else:
+                c["kv"] = {"k": zeros(length, hk, dh),
+                           "v": zeros(length, hk, dh)}
         if cfg.ssm in ("mamba2", "hybrid"):
             di, ns, nh, hd = ssm_dims(cfg)
             c["ssm"] = {
-                "conv": torch.zeros(batch_size, cfg.ssm_conv - 1,
-                                    di + 2 * ns, dtype=dt, device=device),
-                "state": torch.zeros(batch_size, nh, ns, hd,
-                                     dtype=torch.float32, device=device)}
+                "conv": zeros(cfg.ssm_conv - 1, di + 2 * ns),
+                "state": zeros(nh, ns, hd, dtype=torch.float32)}
         return c
 
-    return [layer_cache() for _ in range(cfg.n_layers)]
+    def cross_cache():
+        return {"kv": {"k": zeros(cfg.cross_tokens, hk, dh),
+                       "v": zeros(cfg.cross_tokens, hk, dh)}}
+
+    return [cross_cache() if cross else self_cache()
+            for cross, _ in layer_order(cfg)]
 
 
 # ------------------------------------------------------------- forward
+def _embed(model, tokens):
+    """Token embeddings; audio: the sum over the codebooks, k = 0..K-1
+    in order, of ``embed[k][tokens[..., k]]``."""
+    if model.cfg.frontend != "audio":
+        return model.embed[tokens]
+    x = model.embed[0][tokens[..., 0]]
+    for k in range(1, model.cfg.codebooks):
+        x = x + model.embed[k][tokens[..., k]]
+    return x
+
+
 def _unembed(model, x):
+    audio = model.cfg.frontend == "audio"
     if model.lm_head is None:
+        if audio:
+            return einsum("bsd,kvd->bskv", x, model.embed)
         return mm(x, model.embed.t())
+    if audio:
+        return einsum("bsd,kdv->bskv", x, model.lm_head)
     return mm(x, model.lm_head)
 
 
@@ -239,45 +331,54 @@ def remat(layer, cfg):
 
 
 def forward(model: Transformer, tokens, cache=None, cache_pos: int = 0,
-            impl="auto"):
-    """tokens: [B, S] integer.  cache=None: full forward, differentiable
-    when grad mode is on.  Otherwise prefill / decode with the list from
-    ``make_cache`` (updated and returned).  Returns (logits [B, S, V],
-    cache)."""
+            impl="auto", vision=None):
+    """tokens: [B, S] integer ([B, S, K] audio); ``vision``: [B, T, d]
+    (vision family; at decode the cross layers read their cache).
+    cache=None: full forward, differentiable when grad mode is on.
+    Otherwise prefill / decode with the list from ``make_cache``
+    (updated and returned).  Returns (logits [B, S, V] ([B, S, K, V]
+    audio), cache)."""
     cfg = model.cfg
     act = cfg.activation_dtype
-    x = model.embed[tokens] * torch.tensor(cfg.d_model ** 0.5, dtype=act,
-                                           device=tokens.device)
-    B, S = tokens.shape
+    x = _embed(model, tokens) * torch.tensor(cfg.d_model ** 0.5, dtype=act,
+                                             device=tokens.device)
+    B, S = tokens.shape[:2]
     kv_len = cache_pos + S if cache is not None else None
     positions = (cache_pos + torch.arange(S, device=tokens.device))[None, :]
     positions = positions.expand(B, S)
-    for i, layer in enumerate(model.layers):
-        if cache is None:
-            x, _ = remat(layer, cfg)(x, positions, cache_pos, kv_len, None,
-                                     impl)
+    for i, (cross, j) in enumerate(layer_order(cfg)):
+        c = None if cache is None else cache[i]
+        if cross:
+            layer = model.cross_layers[j]
+            args = (x, vision, c, impl, cfg)
         else:
-            x, cache[i] = layer(x, positions, cache_pos, kv_len, cache[i],
-                                impl)
+            layer = model.layers[j]
+            args = (x, positions, cache_pos, kv_len, c, impl, cfg)
+        if cache is None:
+            x, _ = remat(layer, cfg)(*args)
+        else:
+            x, cache[i] = layer(*args)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return _unembed(model, x), cache
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens, cache_len=None, impl="auto"):
+def prefill(model: Transformer, tokens, cache_len=None, impl="auto",
+            vision=None):
     """Run the prompt; returns (last-position logits, cache, next_pos)."""
     cfg = model.cfg
-    B, S = tokens.shape
+    B, S = tokens.shape[:2]
     cache = make_cache(cfg, B, cache_len or cfg.max_cache_len or S,
                        tokens.device)
     logits, cache = forward(model, tokens, cache=cache, cache_pos=0,
-                            impl=impl)
+                            impl=impl, vision=vision)
     return logits[:, -1:], cache, S
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, tokens, cache, pos: int, impl="auto"):
-    """One decode step.  tokens [B, 1]; pos: the Python int position."""
+    """One decode step.  tokens [B, 1] ([B, 1, K] audio); pos: the Python
+    int position."""
     logits, cache = forward(model, tokens, cache=cache, cache_pos=pos,
                             impl=impl)
     return logits, cache, pos + 1

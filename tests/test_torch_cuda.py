@@ -320,6 +320,10 @@ ATTN = [  # B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len
     (2, 16, 2, 1, 300, 128, True, 100, 290),
     (1, 8, 2, 100, 130, 160, True, 40, 120),
     (1, 12, 1, 1, 300, 160, True, 0, 250),
+    # cross-attention: non-causal, a prompt longer than the encoder's
+    # tokens (Sq > kv_len), and its decode
+    (2, 8, 2, 100, 40, 128, False, 0, 40),
+    (2, 8, 2, 1, 40, 128, False, 0, 40),
 ]
 
 
@@ -446,21 +450,27 @@ def test_ssd_phase_kernels_match_their_plain_pieces(dev, case):
                                **tol)
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-130m",
-                                  "gemma3-1b"])
-def test_serving_through_the_kernels_matches_the_plain_path(dev, arch):
+@pytest.mark.parametrize("arch,kw", [
+    ("hymba-1.5b", {}), ("mamba2-130m", {}), ("gemma3-1b", {}),
+    ("chatglm3-6b", {}), ("qwen3-32b", dict(kv_cache_dtype="int8")),
+    ("stablelm-12b", {}), ("mixtral-8x22b", {}),
+    ("mixtral-8x22b", dict(moe_dispatch="gather")),
+    ("llama4-scout-17b-a16e", {}), ("llama-3.2-vision-11b", {}),
+    ("musicgen-large", {})])
+def test_serving_through_the_kernels_matches_the_plain_path(dev, arch, kw):
     from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import make_inputs
     from repro_torch.models import decode_step, init_params, prefill
-    cfg = smoke_config(arch)
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                        device=dev)
-    toks = torch.randint(0, cfg.vocab_size, (2, 36), device=dev,
-                         generator=torch.Generator(device=dev)
-                         .manual_seed(1))
+    cfg = smoke_config(arch, **kw)
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = init_params(cfg, g, device=dev)
+    for layer in model.cross_layers:
+        layer.attn["gate"].data.fill_(0.5)
+    toks, vision = make_inputs(cfg, 2, 36, g, dev)
     out = {}
     for impl in ("auto", "torch"):
         lg, cache, pos = prefill(model, toks[:, :32], cache_len=36,
-                                 impl=impl)
+                                 impl=impl, vision=vision)
         logits = [lg]
         for i in range(4):
             lg, cache, pos = decode_step(model, toks[:, 32 + i:33 + i],

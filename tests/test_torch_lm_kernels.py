@@ -45,6 +45,9 @@ ATTN_CASES = [
     (1, 2, 1, 7, 50, 64, True, 5, 50),       # ragged Sq, window < Sq
     (1, 4, 2, 12, 12, 32, False, 0, None),   # non-causal
     (1, 4, 1, 9, 30, 256, True, 4, 21),      # gemma3's head dim
+    # cross-attention: a prompt longer than the encoder's tokens
+    (2, 8, 2, 24, 16, 16, False, 0, None),
+    (1, 4, 2, 20, 16, 32, False, 0, 12),
 ]
 
 

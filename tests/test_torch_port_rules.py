@@ -198,21 +198,43 @@ def test_serve_cli_raises_without_a_card():
 
 
 def test_lm_options_not_ported_raise():
-    from repro_torch.configs import get_config, smoke_config
+    """Every family of the registry and the int8 and ring caches
+    construct and serve on the CPU; what stays unported (the audio and
+    vision losses of training) raises with a pointer to ROADMAP.md."""
+    import torch
+
+    from repro_torch.configs import (ARCH_NAMES, NOT_PORTED, get_config,
+                                     smoke_config)
     from repro_torch.launch import serve
-    from repro_torch.models import Transformer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mixtral-8x22b")
+    from repro_torch.models import decode_step, make_loss_fn, prefill
+    assert NOT_PORTED == () and len(ARCH_NAMES) == 10
+    assert get_config("mixtral-8x22b").moe_experts == 8
     with pytest.raises(KeyError, match="unknown arch"):
         smoke_config("no-such-arch")
-    for kw in (dict(kv_cache_dtype="int8"), dict(window_ring_cache=True),
-               dict(moe_experts=4), dict(cross_attn_every=2),
-               dict(frontend="audio")):
+    runs = [(arch, {}) for arch in ARCH_NAMES]
+    runs += [("gemma3-1b", dict(kv_cache_dtype="int8")),
+             ("mixtral-8x22b", dict(moe_dispatch="gather"))]
+    for arch, kw in runs:
+        res = serve.serve(smoke_config(arch, **kw), batch=2, prompt_len=8,
+                          gen=2, device="cpu")
+        assert res["tokens"].shape[:2] == (2, 2), (arch, kw)
+    # the ring: a window-sized cache that decode wraps
+    res["model"].cfg = smoke_config("mixtral-8x22b", window_ring_cache=True)
+    W = res["model"].cfg.window
+    tokens = torch.zeros(2, W, dtype=torch.long)
+    logits, cache, pos = prefill(res["model"], tokens, cache_len=W)
+    for _ in range(3):
+        logits, cache, pos = decode_step(res["model"], tokens[:, :1], cache,
+                                         pos)
+    assert pos == W + 3 and cache[0]["kv"]["k"].shape[1] == W
+    assert torch.isfinite(logits).all()
+    res = serve.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu",
+                      "--kv-dtype", "int8", "--gen", "2"])
+    assert res["cfg"].kv_cache_dtype == "int8"
+    for arch in ("musicgen-large", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Transformer(smoke_config("hymba-1.5b", **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        serve.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu",
-                    "--kv-dtype", "int8"])
+            make_loss_fn(smoke_config(arch))
+    assert callable(make_loss_fn(smoke_config("mixtral-8x22b")))
 
 
 def test_chip_smoke_fails_without_a_card():

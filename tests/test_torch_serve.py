@@ -3,11 +3,13 @@
 The reference's parameters (``repro.models.init_params``) are carried
 across with ``params_from_jax``; prefill logits and teacher-forced
 decode steps must agree with the reference's ``prefill`` /
-``decode_step`` on the smoke configs of hymba-1.5b, mamba2-130m and
-gemma3-1b (float32: atol/rtol 1e-4, the width of float32 sums taken in
+``decode_step`` on the smoke configs of all ten families of the
+registry (float32: atol/rtol 1e-4, the width of float32 sums taken in
 another order over a few layers; bfloat16: 5e-2, a few bfloat16 ulps of
-the logits), with equal greedy tokens.  Both sides run their plain
-paths (the reference's jnp oracles, the port's plain PyTorch versions).
+the logits), with equal greedy tokens; the audio family's prompts are
+``[B, S, K]`` codebook tokens, the vision family reads the same encoder
+states on both sides.  Both sides run their plain paths (the
+reference's jnp oracles, the port's plain PyTorch versions).
 """
 import dataclasses
 import os
@@ -29,20 +31,31 @@ from repro_torch.models import (forward, make_decode_step,  # noqa: E402
                                 softmax_cross_entropy)
 from repro_torch.models.convert import to_tensor  # noqa: E402
 
-ARCHS = ["hymba-1.5b", "mamba2-130m", "gemma3-1b"]
+ARCHS = list(tcfgs.ARCH_NAMES)
 PROMPT, STEPS, BATCH = 32, 8, 2
 
 
 def _tokens(cfg, seed):
     rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab_size, (BATCH, PROMPT + STEPS),
+    audio = (cfg.codebooks,) if cfg.frontend == "audio" else ()
+    return rng.integers(0, cfg.vocab_size, (BATCH, PROMPT + STEPS, *audio),
                         dtype=np.int32)
 
 
-def _jax_run(cfg, params, tokens):
+def _vision(cfg, seed):
+    """The vision family's encoder states (numpy, float32), else None."""
+    if cfg.frontend != "vision":
+        return None
+    rng = np.random.default_rng(seed + 100)
+    return (0.1 * rng.standard_normal(
+        (BATCH, cfg.cross_tokens, cfg.d_model))).astype(np.float32)
+
+
+def _jax_run(cfg, params, tokens, vision=None):
     """Prefill on the prompt, then STEPS teacher-forced decode steps."""
     cache_len = PROMPT + STEPS
-    pre = jax.jit(lambda p, t: jm.prefill(p, cfg, {"tokens": t},
+    batch = {} if vision is None else {"vision": jnp.asarray(vision)}
+    pre = jax.jit(lambda p, t: jm.prefill(p, cfg, dict(batch, tokens=t),
                                           cache_len=cache_len))
     dec = jax.jit(lambda p, t, c, pos: jm.decode_step(p, cfg, t, c, pos))
     lg, cache, pos = pre(params, jnp.asarray(tokens[:, :PROMPT]))
@@ -54,11 +67,13 @@ def _jax_run(cfg, params, tokens):
     return out
 
 
-def _torch_run(cfg, model, tokens):
+def _torch_run(cfg, model, tokens, vision=None):
     t = torch.as_tensor(tokens, dtype=torch.long)
     prefill_step = make_prefill_step(cache_len=PROMPT + STEPS)
     decode_step = make_decode_step()
-    lg, cache, pos = prefill_step(model, t[:, :PROMPT])
+    lg, cache, pos = prefill_step(
+        model, t[:, :PROMPT],
+        vision=None if vision is None else torch.as_tensor(vision))
     out = [lg.float().numpy()]
     for i in range(STEPS):
         lg, cache, pos = decode_step(model, t[:, PROMPT + i:PROMPT + i + 1],
@@ -74,15 +89,16 @@ def _params(cfg, seed):
 
 def _compare(cfg, seed, tol):
     params, tree = _params(cfg, seed)
-    tokens = _tokens(cfg, seed)
-    want = _jax_run(cfg, params, tokens)
+    tokens, vision = _tokens(cfg, seed), _vision(cfg, seed)
+    want = _jax_run(cfg, params, tokens, vision)
     tcfg = dataclasses.replace(tcfgs.smoke_config(_arch_of(cfg)),
                                dtype=cfg.dtype)
     model = params_from_jax(tree, tcfg, device="cpu")
-    got = _torch_run(tcfg, model, tokens)
+    got = _torch_run(tcfg, model, tokens, vision)
     assert len(got) == len(want) == STEPS + 1
+    audio = (cfg.codebooks,) if cfg.frontend == "audio" else ()
     for step, (g, w) in enumerate(zip(got, want)):
-        assert g.shape == w.shape == (BATCH, 1, cfg.vocab_size)
+        assert g.shape == w.shape == (BATCH, 1, *audio, cfg.vocab_size)
         np.testing.assert_allclose(g, w, atol=tol, rtol=tol,
                                    err_msg=f"{cfg.name} step {step}")
         np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1),
