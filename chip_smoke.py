@@ -173,8 +173,11 @@ printing one JSON line:
     a step) and a warm ``generate`` of the same prompts on the same
     weights (equal tokens); prefill ms, decode ms/step, tokens/s and
     peak memory of each.  Then the int8 KV cache on the qwen3-32b
-    weights: a timed serve and, teacher-forced on the bf16 tokens, how
-    far its logits are from the bf16 cache's (printed).  Then each
+    weights: a timed serve and, teacher-forced on the bf16 tokens at
+    batch 2, how far its logits are from the bf16 cache's through the
+    kernels and through the plain versions: the kernels' gap at most the
+    plain path's plus the kernels' own distance from it with the bf16
+    cache.  Then each
     config in float32 cut to 2 layers, batch 2, prompt 512 and 4
     teacher-forced decode steps through the kernels (K2 ``f32``) and
     the plain versions: logits within 1e-3, greedy tokens equal (qwen3
@@ -186,8 +189,13 @@ printing one JSON line:
     above (dense dispatch); on the mixtral weights the gather and dense
     dispatches in turns (gather, gather, dense), then the ring KV cache:
     batch 1, a 4096-token prompt that fills the window and 32 decode
-    steps that wrap it, against a full-length cache (bf16: each step's
-    largest difference and the greedy agreement printed).  The float32
+    steps that wrap it, against a full-length cache in bf16, the
+    router's choices logged: each served step's largest difference and
+    router flips, then every router call pinned to the full-length
+    run's choices through the kernels and the plain versions (the
+    kernels' pinned gap at most the plain path's plus the kernels' own
+    distance from it; every served step beyond the pinned gap shows a
+    router flip at that step).  The float32
     checks (mixtral's with both dispatches), and the ring at full width
     in float32 on 2 layers: within 5e-4 x the logits' scale of the
     full-length cache (the reference's own bound), greedy tokens
@@ -220,6 +228,7 @@ the reference package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1469,6 +1478,31 @@ ATTN_CASES = (
     ("cross_s1600_decode", 4, 32, 8, 1, 1600, 128, 1600, 0, False, True),
     ("cross_sq2048_s1600", 4, 32, 8, 2048, 1600, 128, 1600, 0, False,
      True),
+    # the other served self-attention shapes: llama4-scout (group 5),
+    # qwen3-32b (group 8) and stablelm-12b (D 160) at batch 4 x 1536 over
+    # the 1552-position cache; the vision model's self layers (32/8) at
+    # its 1536- and 2048-token prompts; mixtral's ring (batch 1): the
+    # prompt that fills the 4096 positions, then a wrapped decode that
+    # sees every slot (non-causal, window 4096)
+    ("llama4_g5_prefill", 4, 40, 8, 1536, 1552, 128, 1536, 0, True, True),
+    ("llama4_g5_decode", 4, 40, 8, 1, 1552, 128, 1537, 0, True, True),
+    ("qwen3_g8_prefill", 4, 64, 8, 1536, 1552, 128, 1536, 0, True, True),
+    ("qwen3_g8_decode", 4, 64, 8, 1, 1552, 128, 1537, 0, True, True),
+    ("stablelm_d160_prefill_b4", 4, 32, 8, 1536, 1552, 160, 1536, 0, True,
+     True),
+    ("stablelm_d160_decode_b4", 4, 32, 8, 1, 1552, 160, 1537, 0, True,
+     True),
+    ("vision_self_prefill", 4, 32, 8, 1536, 1552, 128, 1536, 0, True,
+     True),
+    ("vision_self_decode", 4, 32, 8, 1, 1552, 128, 1537, 0, True, True),
+    ("vision_self_sq2048_prefill", 4, 32, 8, 2048, 2064, 128, 2048, 0,
+     True, True),
+    ("vision_self_sq2048_decode", 4, 32, 8, 1, 2064, 128, 2049, 0, True,
+     True),
+    ("mixtral_ring_prefill", 1, 48, 8, 4096, 4096, 128, 4096, 4096, True,
+     True),
+    ("mixtral_ring_decode", 1, 48, 8, 1, 4096, 128, 4096, 4096, False,
+     True),
 )
 ATTN_PATH = ("prefill_w1024", "prefill_w0", "decode_w1024", "decode_w0",
              "train_w1024", "train_w0")
@@ -1480,7 +1514,13 @@ ATTN_TIMED = ATTN_PATH + ("qwen3_d128_prefill", "qwen3_d128_decode",
                           "mixtral_g6_prefill", "mixtral_g6_decode",
                           "musicgen_mha_prefill", "musicgen_mha_decode",
                           "cross_s1600_prefill", "cross_s1600_decode",
-                          "cross_sq2048_s1600")
+                          "cross_sq2048_s1600", "llama4_g5_prefill",
+                          "llama4_g5_decode", "qwen3_g8_prefill",
+                          "qwen3_g8_decode", "stablelm_d160_prefill_b4",
+                          "stablelm_d160_decode_b4", "vision_self_prefill",
+                          "vision_self_decode", "vision_self_sq2048_prefill",
+                          "vision_self_sq2048_decode",
+                          "mixtral_ring_prefill", "mixtral_ring_decode")
 # bfloat16 only: the edges of the tensor-core (Sq > 1) and split (Sq 1)
 # routes
 ATTN_EDGE_CASES = (
@@ -2305,6 +2345,10 @@ def _serve_model(cfg, seed=0):
                              if cfg.cross_attn_every else 0),
                params=cfg.param_count(),
                params_gb_bf16=cfg.param_count() * 2 / 1e9,
+               # what the model as built holds (``param_count`` is the
+               # config's own estimate)
+               params_built_gb_bf16=sum(
+                   p.numel() for p in res["model"].parameters()) * 2 / 1e9,
                dtype=cfg.dtype, kv_cache_dtype=cfg.kv_cache_dtype,
                moe_dispatch=cfg.moe_dispatch if cfg.moe_experts else None,
                batch=batch, prompt=prompt, gen=gen,
@@ -2432,27 +2476,36 @@ def _cut(cfg, layers):
     return dataclasses.replace(cfg, n_layers=layers)
 
 
-def _int8_error(model, cfg, prompts, teacher, vision=None):
+def _max_diff(a, b):
+    """The largest difference between two lists of step logits."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def _int8_error(model, cfg, prompts, teacher):
     """The largest logit difference of the int8 KV cache from the
     activation-type cache on the same weights, teacher-forced, and the
     logits' scale."""
     model.cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
-    int8 = _teacher_forced(model, prompts, teacher, vision)
+    int8 = _teacher_forced(model, prompts, teacher)
     model.cfg = dataclasses.replace(cfg, kv_cache_dtype="none")
-    full = _teacher_forced(model, prompts, teacher, vision)
+    full = _teacher_forced(model, prompts, teacher)
     model.cfg = cfg
-    scale = max(float(f.float().abs().max()) for f in full)
-    err = max(float((a.float() - b.float()).abs().max())
-              for a, b in zip(int8, full))
-    return err, scale
+    return _max_diff(int8, full), max(float(f.float().abs().max())
+                                      for f in full)
 
 
 def _int8_check(row, res):
     """The int8 KV cache on the same weights: a timed greedy serve of the
     same prompts (K2 routes as the bf16 cache's, tokens in the
-    vocabulary), and, teacher-forced on the bf16 serve's tokens, how far
-    its logits are from the bf16 cache's (reported; the reference's
-    bound is held at its own depth and dtype in ``_qwen3_f32``)."""
+    vocabulary).  Then, on the first ``CHECK_BATCH`` prompts
+    teacher-forced on the bf16 serve's tokens, how far the int8 cache's
+    logits are from the bf16 cache's, through the kernels and through
+    the plain versions (``impl="torch"``).  Held: the kernel path's gap
+    is at most the plain path's plus the kernels' own distance from the
+    plain path with the bf16 cache (what K2's rounding alone moves the
+    logits at this depth).  The reference's bound is held at its own
+    depth and type in ``_qwen3_f32``."""
     import torch
     from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
     from repro_torch.launch import serve
@@ -2463,20 +2516,36 @@ def _int8_check(row, res):
     run = serve.generate(model, res["prompts"], SERVE_GEN, res["vision"])
     routes = dict(FA.routes)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    prompts = res["prompts"][:CHECK_BATCH]
+    teacher = res["tokens"][:CHECK_BATCH, :CHECK_STEPS]
+    logits = {}
+    for impl in ("auto", "torch"):
+        for kv in ("int8", "none"):
+            model.cfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
+            logits[impl, kv] = _teacher_forced(model, prompts, teacher,
+                                               impl=impl)
     model.cfg = cfg
-    err, scale = _int8_error(model, cfg, res["prompts"],
-                             res["tokens"][:, :CHECK_STEPS])
+    gap = {impl: _max_diff(logits[impl, "int8"], logits[impl, "none"])
+           for impl in ("auto", "torch")}
+    margin = _max_diff(logits["auto", "none"], logits["torch", "none"])
     toks = run["tokens"]
     row["int8"] = dict(
         prefill_ms=run["prefill_ms"],
         decode_ms_per_step=run["decode_ms_per_token"],
         tokens_per_s=run["tokens_per_s"], peak_mem_gb=peak,
-        k2_routes=routes, max_abs_vs_bf16_cache=err, logit_scale=scale,
+        k2_routes=routes,
         greedy_agree=float((toks == res["tokens"]).float().mean()),
         tokens_in_vocab=bool((toks >= 0).all()
-                             and (toks < cfg.vocab_size).all()))
-    return routes == row["k2_routes_expected"] and \
-        row["int8"]["tokens_in_vocab"]
+                             and (toks < cfg.vocab_size).all()),
+        witness=dict(batch=CHECK_BATCH, steps=CHECK_STEPS,
+                     kernel_gap=gap["auto"], plain_gap=gap["torch"],
+                     kernel_vs_plain_bf16_cache=margin,
+                     logit_scale=max(float(f.float().abs().max())
+                                     for f in logits["torch", "none"]),
+                     within=gap["auto"] <= gap["torch"] + margin))
+    return (routes == row["k2_routes_expected"]
+            and row["int8"]["tokens_in_vocab"]
+            and row["int8"]["witness"]["within"])
 
 
 def _qwen3_f32():
@@ -2503,18 +2572,23 @@ def _qwen3_f32():
     return rows, ok and err < int8["bound"], model
 
 
-def _ring_compare(model, cfg, g, atol, rtol, bound):
-    """Batch 1, a prompt that fills the window (4096 tokens for mixtral),
-    and ``RING_STEPS`` teacher-forced decode steps that wrap the ring:
-    each step's logits against a full-length cache's."""
+def _ring_inputs(cfg, g):
+    """Batch 1: a prompt that fills the window (4096 tokens for
+    mixtral) and ``RING_STEPS`` decode tokens that wrap the ring."""
     import torch
     from repro_torch.launch import serve
-    W = cfg.window
-    toks, _ = serve.make_inputs(cfg, 1, W + RING_STEPS, g,
+    toks, _ = serve.make_inputs(cfg, 1, cfg.window + RING_STEPS, g,
                                 torch.device("cuda"))
-    prompts, teacher = toks[:, :W], toks[:, W:]
+    return toks[:, :cfg.window], toks[:, cfg.window:]
+
+
+def _ring_compare(model, cfg, g, atol, rtol, bound):
+    """Each teacher-forced step's logits of the ring cache against a
+    full-length cache's (``_ring_inputs``)."""
+    import torch
+    prompts, teacher = _ring_inputs(cfg, g)
     model.cfg = dataclasses.replace(cfg, window_ring_cache=True)
-    ring = _teacher_forced(model, prompts, teacher, cache_len=W)
+    ring = _teacher_forced(model, prompts, teacher, cache_len=cfg.window)
     model.cfg = cfg
     full = _teacher_forced(model, prompts, teacher)
     scale = max(float(f.float().abs().max()) for f in full)
@@ -2523,27 +2597,95 @@ def _ring_compare(model, cfg, g, atol, rtol, bound):
     agree = [bool(torch.equal(a.argmax(-1), b.argmax(-1)))
              for a, b in zip(ring, full)]
     worst = max(e for e, _ in errs)
-    return dict(batch=1, prompt=W, steps=RING_STEPS, cache=W,
-                max_abs=worst, step_max_abs=[e for e, _ in errs],
-                logit_scale=scale, atol=atol, rtol=rtol, greedy_equal_steps=sum(agree),
+    return dict(batch=1, prompt=cfg.window, steps=RING_STEPS,
+                cache=cfg.window, max_abs=worst,
+                step_max_abs=[e for e, _ in errs], logit_scale=scale,
+                atol=atol, rtol=rtol, greedy_equal_steps=sum(agree),
                 within=all(c for _, c in errs)
-                and (bound is None or worst < bound * max(scale, 1.0)),
+                and worst < bound * max(scale, 1.0),
                 all_greedy_equal=all(agree))
+
+
+@contextlib.contextmanager
+def _routes(pin=None):
+    """The MoE router's choices (``layers._route``) in call order: the
+    yielded list receives each call's experts.  With ``pin`` (such a
+    list), each call takes the next pinned experts instead of its own
+    top k, gated by the softmax of its own logits at them."""
+    import torch
+    from repro_torch.models import layers
+    own, log, it = layers._route, [], iter(pin or ())
+
+    def route(x, router, k):
+        if pin is None:
+            gates, idx = own(x, router, k)
+        else:
+            idx = next(it)
+            logits = layers.mm(x.float(), router.float())
+            gates = torch.softmax(torch.gather(logits, -1, idx), dim=-1)
+        log.append(idx)
+        return gates, idx
+
+    layers._route = route
+    try:
+        yield log
+    finally:
+        layers._route = own
 
 
 def _ring_check(row, res):
     """The ring cache on the bf16 mixtral weights against the
-    full-length cache: each step's largest logit difference and the
-    greedy agreement, reported.  Not held to a bound: the two caches sum
-    the same keys in another order, and in bfloat16 that moves the
-    router's logits enough to flip a top-2 choice now and then, which
-    moves that token's logits by whole units (PERF.md §6); the ring is
-    held in float32 in ``_mixtral_f32``."""
+    full-length cache (``_ring_inputs``), with the router's choices
+    logged: the served ring (its own choices), then the ring with every
+    router call pinned to the full-length run's choices, through the
+    kernels and through the plain versions (pinned to the same).  Held:
+    (1) pinned, the kernel path's largest gap is at most the plain
+    path's plus the kernels' own distance from the plain path on the
+    full-length cache; (2) every served step further off than the
+    pinned kernel gap plus that distance shows a router choice that
+    differs from the full-length run's at that step."""
     import torch
+    model, cfg = res["model"], res["cfg"]
     g = torch.Generator(device="cuda").manual_seed(1)
-    row["ring_bf16"] = _ring_compare(res["model"], res["cfg"], g, 5e-2,
-                                     5e-2, None)
-    return all(math.isfinite(e) for e in row["ring_bf16"]["step_max_abs"])
+    prompts, teacher = _ring_inputs(cfg, g)
+    ring_cfg = dataclasses.replace(cfg, window_ring_cache=True)
+
+    def run(impl, ring, pin=None):
+        model.cfg = ring_cfg if ring else cfg
+        with _routes(pin) as log:
+            out = _teacher_forced(model, prompts, teacher, impl=impl,
+                                  cache_len=cfg.window if ring else None)
+        model.cfg = cfg
+        return out, log
+
+    full, chosen = run("auto", False)
+    served, served_chosen = run("auto", True)
+    pinned, _ = run("auto", True, chosen)
+    plain_full, _ = run("torch", False, chosen)
+    plain_ring, _ = run("torch", True, chosen)
+    L = cfg.n_layers
+    flips = [sum(not torch.equal(a.sort(-1).values, b.sort(-1).values)
+                 for a, b in zip(chosen[s * L:(s + 1) * L],
+                                 served_chosen[s * L:(s + 1) * L]))
+             for s in range(RING_STEPS + 1)]
+    served_err = [_max_diff([a], [b]) for a, b in zip(served, full)]
+    gap_k, gap_p = _max_diff(pinned, full), _max_diff(plain_ring,
+                                                      plain_full)
+    margin = _max_diff(full, plain_full)
+    beyond = [s for s, e in enumerate(served_err) if e > gap_k + margin]
+    row["ring_bf16"] = dict(
+        batch=1, prompt=cfg.window, steps=RING_STEPS, cache=cfg.window,
+        logit_scale=max(float(f.float().abs().max()) for f in full),
+        served_step_max_abs=served_err, served_router_flips=flips,
+        served_greedy_equal_steps=sum(
+            bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+            for a, b in zip(served, full)),
+        pinned_kernel_gap=gap_k, pinned_plain_gap=gap_p,
+        kernel_vs_plain_full=margin, steps_beyond_pinned=beyond,
+        kernel_within_plain=gap_k <= gap_p + margin,
+        beyond_steps_flip=all(flips[s] > 0 for s in beyond))
+    return (row["ring_bf16"]["kernel_within_plain"]
+            and row["ring_bf16"]["beyond_steps_flip"])
 
 
 def _moe_turns(row, res):
