@@ -6,8 +6,9 @@ Drives the port's main paths through the entry points a user calls,
 and checks them: the paper survey's batched dynamic simulator, the
 static simulator and the ``genetic-vec`` scheduler on it, all with the
 max-min waterfill kernel (K1), serving and training Hymba-1.5B with
-the flash attention (K2) and Mamba-2 SSD scan (K3) kernels, and serving
-the other seven architecture families through K2.  Phases, each
+the flash attention (K2) and Mamba-2 SSD scan (K3) kernels, serving
+the other seven architecture families through K2, and training the
+audio, vision and MoE families through K2.  Phases, each
 printing one JSON line:
 
 1. ``env``: the card's name and power limit.
@@ -116,7 +117,11 @@ printing one JSON line:
    the served families' shapes (chatglm3-6b's group of 16 and mixtral's
    group of 6 with its window of 4096 at D 128, musicgen's MHA at D 64,
    the vision model's non-causal cross-attention over 1600 tokens at
-   prefill and decode and with a 2048-token prompt, Sq > kv_len); fails
+   prefill and decode and with a 2048-token prompt, Sq > kv_len), and
+   the family training phases' shapes at batch 4 x 2048 with no kv_len
+   (musicgen MHA at D 64, the vision model's self layers at 32/8, D 128,
+   mixtral's 48/8 with its window of 4096; the vision cross layers'
+   Sq 2048 over 1600 is ``cross_sq2048_s1600``); fails
    above atol/rtol 1e-5 (float32) or atol
    4e-3 / rtol 8e-3 (bfloat16).  The split route's two kernels are also
    held alone against ``ref.attention_partials`` (atol/rtol 1e-4) and
@@ -128,7 +133,8 @@ printing one JSON line:
    the host: there ``ms`` and ``library_ms`` are device times of calls
    replayed from a CUDA graph, and the eager times stand beside them
    (``eager_ms``, ``library_eager_ms``).  Hymba's six cases, the
-   four D 128/160 cases and the families' nine are timed.
+   four D 128/160 cases, the served families' and the three training
+   shapes are timed.
 14. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
     ``ssd_state_pass``, ``ssd_chunk_scan``) each alone against its plain
     piece (``ref.ssd_chunk_states``, ``ssd_pass_states``,
@@ -207,9 +213,41 @@ printing one JSON line:
     gate 0.5.
 20. ``serve_audio``: musicgen-large whole (48 layers, [B, S, 4] codebook
     prompts, [B, 16, 4] tokens), served as above; the float32 check.
-21. ``kernels``: each kernel with its launches on the main paths (K1's
+21. ``train_audio``: training musicgen-large.  First a gradient check
+    as ``train_hymba``'s: the config in float32 at full width cut to 2
+    layers, batch 2 x 512 ([B, S, 4] codebook tokens), one
+    ``make_train_step`` through the kernels and one through the plain
+    versions from the same parameters: loss within rtol 1e-5, each
+    parameter's gradient within a relative L2 error of 1e-4, K2
+    (``f32``) twice a layer (forward and remat recompute).  Then
+    ``repro_torch.launch.train`` on the whole model (48 layers, 3.25 B
+    parameters, bf16, remat full), batch 4 x 2048, 3 steps: finite
+    losses, K2 (``tc``) twice a layer a step; ms/step (first and warm),
+    tokens/s, model TFLOP/s (``launch.roofline.model_flops``, 6 x active
+    parameters x tokens) and its share of the H100's bf16 peak, peak
+    memory, the parameters as built; then one more warm step under the
+    profiler.
+22. ``train_vision``: llama-3.2-vision-11b likewise: the gradient check
+    on one group of 5 layers (4 self + 1 cross, every cross gate 0.5
+    before either path runs: at the initial gate of 0 the
+    cross-attention weights take no gradient) over 1600 vision tokens;
+    the bf16 run on 10 layers (8 self + 2 cross, 2.88 B parameters as
+    built; the whole model with AdamW is some 120 GB), ``launch.train
+    --layers 10``.
+23. ``train_moe``: mixtral-8x22b likewise: the gradient check at 1 layer
+    with the dense dispatch, dense with ``moe_fold_gates`` and gather on
+    one set of weights (the router's choices logged on both paths; where
+    one flips, the plain path runs again pinned to the kernel path's
+    choices, and the flips are reported); the bf16 run at 1 layer
+    (2.91 B; at 2 layers, 5.41 B, the step does not fit the card's 80
+    GB with AdamW) with the dense dispatch, then one step each of
+    gather, fold, dense, dense, fold, gather in turns on its weights.
+    The three phases print their wall seconds and their total on the
+    ``kernels`` line.
+24. ``kernels``: each kernel with its launches on the main paths (K1's
     summed over its path phases, K2's over ``serve_hymba``,
-    ``train_hymba`` and the four family phases, K3's over
+    ``train_hymba``, the four serve family phases and the three train
+    family phases, K3's over
     ``serve_hymba`` and ``train_hymba``; K1 and K2 also by route); needs
     every kernel's check phase and the phases of its paths in the same
     run.
@@ -246,7 +284,8 @@ PHASES = ("env", "build", "kernel_waterfill", "golden", "survey_mini",
           "survey_engine", "static_golden", "static_full_width", "genetic_vec",
           "kernel_flash_attention", "kernel_ssd", "serve_hymba",
           "train_hymba", "serve_dense", "serve_moe", "serve_vision",
-          "serve_audio", "kernels")
+          "serve_audio", "train_audio", "train_vision", "train_moe",
+          "kernels")
 
 # the recorded dynamic rows of BENCH_PR7.json (reference package, CPU)
 GOLDEN = {
@@ -1503,6 +1542,14 @@ ATTN_CASES = (
      True),
     ("mixtral_ring_decode", 1, 48, 8, 1, 4096, 128, 4096, 4096, False,
      True),
+    # the family training phases' forward pass and remat recompute, batch
+    # 4 x 2048, no kv_len: musicgen (MHA, D 64), the vision model's self
+    # layers (32/8; its cross layers are cross_sq2048_s1600's shape) and
+    # mixtral (48/8, window 4096)
+    ("musicgen_train", 4, 32, 32, 2048, 2048, 64, None, 0, True, True),
+    ("vision_self_train", 4, 32, 8, 2048, 2048, 128, None, 0, True, True),
+    ("mixtral_train_w4096", 4, 48, 8, 2048, 2048, 128, None, 4096, True,
+     True),
 )
 ATTN_PATH = ("prefill_w1024", "prefill_w0", "decode_w1024", "decode_w0",
              "train_w1024", "train_w0")
@@ -1520,7 +1567,9 @@ ATTN_TIMED = ATTN_PATH + ("qwen3_d128_prefill", "qwen3_d128_decode",
                           "stablelm_d160_decode_b4", "vision_self_prefill",
                           "vision_self_decode", "vision_self_sq2048_prefill",
                           "vision_self_sq2048_decode",
-                          "mixtral_ring_prefill", "mixtral_ring_decode")
+                          "mixtral_ring_prefill", "mixtral_ring_decode",
+                          "musicgen_train", "vision_self_train",
+                          "mixtral_train_w4096")
 # bfloat16 only: the edges of the tensor-core (Sq > 1) and split (Sq 1)
 # routes
 ATTN_EDGE_CASES = (
@@ -2082,6 +2131,19 @@ class _GradRecorder:
         return state
 
 
+def _grad_errors(got, want):
+    """Each parameter's relative L2 error of ``got`` from ``want``, and
+    the worst by parameter leaf name."""
+    errs = {n: float((a - want[n]).norm()
+                     / want[n].norm().clamp_min(1e-30))
+            for n, a in got.items()}
+    by_leaf = {}
+    for n, e in errs.items():
+        leaf = n.rsplit(".", 1)[-1]
+        by_leaf[leaf] = max(e, by_leaf.get(leaf, 0.0))
+    return errs, by_leaf
+
+
 def _train_grad_check(seed, layers=4, batch=2, seq=2048):
     """Hymba-1.5B at full width in float32, cut to ``layers`` layers:
     one ``make_train_step`` through the kernels and one through the plain
@@ -2115,13 +2177,8 @@ def _train_grad_check(seed, layers=4, batch=2, seq=2048):
                           launches=dict(flash_attention=FA.count,
                                         ssd=SS.count),
                           routes=dict(FA.routes))
-    errs = {n: float((a - runs["torch"]["grads"][n]).norm()
-                     / runs["torch"]["grads"][n].norm().clamp_min(1e-30))
-            for n, a in runs["auto"]["grads"].items()}
-    by_leaf = {}
-    for n, e in errs.items():
-        leaf = n.rsplit(".", 1)[-1]
-        by_leaf[leaf] = max(e, by_leaf.get(leaf, 0.0))
+    errs, by_leaf = _grad_errors(runs["auto"]["grads"],
+                                 runs["torch"]["grads"])
     worst = max(errs, key=errs.get)
     la, lt = runs["auto"]["loss"], runs["torch"]["loss"]
     want = dict(flash_attention=2 * layers, ssd=2 * layers)
@@ -2816,6 +2873,271 @@ FAMILY_PHASES = {"serve_dense": phase_serve_dense,
                  "serve_audio": phase_serve_audio}
 
 
+# ------------------------------------------------------- train families
+# phases 21-23: training the audio, vision and MoE families through K2,
+# at full width; the bf16 runs at batch 4 x 2048, remat full, with AdamW
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
+# the float32 gradient check: batch 2 x 512 (the vision model's 1600
+# vision tokens), loss within rtol 1e-5, each gradient within a relative
+# L2 error of 1e-4, as train_hymba's
+GRAD_BATCH, GRAD_SEQ = 2, 512
+# depth cuts: llama-3.2-vision whole is 10.1 B parameters, some 120 GB
+# with AdamW (12 bytes a parameter before activations); two groups of 5
+# fit.  mixtral-8x22b whole is 141 B; at 2 layers (5.41 B) the step ran
+# out of the card's 80 GB in the gradient clip, so 1 layer (2.91 B)
+MOE_TRAIN_LAYERS = 1
+VISION_TRAIN_LAYERS = 10
+# the dispatches the MoE phase trains on one set of weights
+MOE_DISPATCHES = {"dense": dict(moe_dispatch="dense"),
+                  "fold": dict(moe_dispatch="dense", moe_fold_gates=True),
+                  "gather": dict(moe_dispatch="gather")}
+
+
+def _family_grad_check(cfg, seed=0, gate=None, dispatches=None):
+    """``cfg`` (float32, full width, cut in depth): one ``make_train_step``
+    through the kernels and one through the plain versions from the same
+    parameters and batch (``GRAD_BATCH`` x ``GRAD_SEQ``; ``gate``: every
+    cross layer's gate, set before either runs).  Loss within rtol 1e-5,
+    each parameter's gradient within a relative L2 error of 1e-4, K2
+    (``f32``) launched twice a layer, self and cross (forward and remat
+    recompute), the plain path never.  ``dispatches``: names of
+    ``MOE_DISPATCHES`` checked in turn on the same weights.  The MoE
+    router's choices are logged on both paths; where one differs, the
+    plain path runs again with every router call pinned to the kernel
+    path's choices, and that run is compared (the flips are reported)."""
+    import torch
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, make_train_step
+    dev = torch.device("cuda")
+    _free()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = init_params(cfg, g, device=dev)
+    if gate is not None:
+        for layer in model.cross_layers:
+            layer.attn["gate"].data.fill_(gate)
+    tokens, vision = serve.make_inputs(cfg, GRAD_BATCH, GRAD_SEQ, g, dev)
+    batch = {"tokens": tokens}
+    if vision is not None:
+        batch["vision"] = vision
+    rows, ok = [], True
+    for name in dispatches or [None]:
+        model.cfg = cfg if name is None else dataclasses.replace(
+            cfg, **MOE_DISPATCHES[name])
+
+        def run(impl, pin=None):
+            FA.reset()
+            rec = _GradRecorder()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _routes(pin) as chosen:
+                metrics = make_train_step(model.cfg, rec, impl=impl)(
+                    model, None, batch)
+                loss = float(metrics["loss"])
+            return dict(loss=loss, grads=rec.grads, chosen=chosen,
+                        wall_s=time.perf_counter() - t0, launches=FA.count,
+                        routes=dict(FA.routes))
+        kern = run("auto")
+        plain = run("torch")
+        flips = sum(not torch.equal(a.sort(-1).values, b.sort(-1).values)
+                    for a, b in zip(kern["chosen"], plain["chosen"]))
+        if flips:
+            plain = run("torch", pin=kern["chosen"])
+        errs, by_leaf = _grad_errors(kern["grads"], plain["grads"])
+        worst = max(errs, key=errs.get)
+        n = 2 * model.cfg.n_layers
+        row = dict(layers=model.cfg.n_layers,
+                   cross_layers=len(model.cross_layers),
+                   moe_dispatch=name, gate=gate, batch=GRAD_BATCH,
+                   seq=GRAD_SEQ, dtype="float32", remat=model.cfg.remat,
+                   loss_kernel=kern["loss"], loss_plain=plain["loss"],
+                   loss_rel_err=abs(kern["loss"] - plain["loss"])
+                   / abs(plain["loss"]),
+                   grad_rel_l2_worst=errs[worst], grad_worst_param=worst,
+                   grad_rel_l2_by_param=by_leaf,
+                   router_calls=len(kern["chosen"]),
+                   router_flips=int(flips),
+                   plain_pinned_to_kernel_routes=bool(flips),
+                   kernel_wall_s=kern["wall_s"],
+                   plain_wall_s=plain["wall_s"],
+                   kernel_launch_routes=kern["routes"],
+                   plain_launches=plain["launches"])
+        row["ok"] = (row["loss_rel_err"] <= 1e-5 and errs[worst] <= 1e-4
+                     and all(math.isfinite(v) for v in errs.values())
+                     and kern["launches"] == n
+                     and kern["routes"] == dict(tc=0, split=0, f32=n)
+                     and plain["launches"] == 0)
+        rows.append(row)
+        ok = ok and row["ok"]
+        del kern, plain
+    del model
+    _free()
+    return rows, ok
+
+
+def _train_run(arch, layers=0):
+    """``launch.train.run`` of ``arch`` in bf16 (remat full), cut to
+    ``layers`` layers when given: ``TRAIN_STEPS`` steps at ``TRAIN_BATCH``
+    x ``TRAIN_SEQ``, K2 counted (zeroed just before the run, read just
+    after).  Returns (row, the run's result, K2 launches, K2 routes)."""
+    import torch
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.launch import roofline, train
+    _free()
+    argv = ["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--seed", "0",
+            "--log-every", "1"] + (["--layers", str(layers)] if layers
+                                   else [])
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset()
+    t0 = time.perf_counter()
+    res = train.run(argv)
+    wall = time.perf_counter() - t0
+    launches, routes = FA.count, dict(FA.routes)
+    cfg = res["cfg"]
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    flops = roofline.model_flops(cfg, shape)
+    warm_s = res["warm_ms"] / 1e3
+    want = 2 * cfg.n_layers * TRAIN_STEPS
+    row = dict(arch=cfg.name, argv=argv, layers=cfg.n_layers,
+               cross_layers=(cfg.n_layers // cfg.cross_attn_every
+                             if cfg.cross_attn_every else 0),
+               params_built=sum(p.numel()
+                                for p in res["model"].parameters()),
+               params_config=cfg.param_count(),
+               active_params=cfg.active_param_count(),
+               dtype=cfg.dtype, remat=cfg.remat,
+               moe_dispatch=cfg.moe_dispatch if cfg.moe_experts else None,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=res["losses"],
+               step_ms=res["step_ms"], first_ms=res["step_ms"][0],
+               warm_ms=res["warm_ms"], tokens_per_s=res["tokens_per_s"],
+               model_flops_per_step=flops,
+               model_tflops=flops / warm_s / 1e12,
+               mfu_bf16=flops / warm_s / roofline.H100_SXM.peak_flops_bf16,
+               run_wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated()
+               / 1e9, k2_launches=launches, k2_routes=routes,
+               k2_routes_expected=dict(tc=want, split=0, f32=0))
+    row["ok"] = (len(res["losses"]) == TRAIN_STEPS
+                 and all(math.isfinite(v) for v in res["losses"])
+                 and launches == want and routes == row["k2_routes_expected"]
+                 and cfg.remat == "full" and cfg.dtype == "bfloat16")
+    return row, res, launches, routes
+
+
+def _profile_step(res):
+    """One more warm step of the run's trainer under the profiler,
+    outside the counted run: device busy and idle share, K2's share and
+    the plain attention backward's device time."""
+    step = len(res["losses"])
+    return _profile(lambda: float(res["step_fn"](
+        res["model"], res["opt_state"], res["make_batch"](step))["loss"]),
+        ranges=PLAIN_BACKWARDS[:1])
+
+
+def _dispatch_turns(res, order=("gather", "fold", "dense", "dense", "fold",
+                                "gather")):
+    """The MoE trainer's model and AdamW state stepped on in turns with
+    each dispatch of ``order`` (one step each, the next step's batch):
+    ms/step, loss and peak memory of each."""
+    import torch
+    model, cfg = res["model"], res["cfg"]
+    turns = []
+    step = len(res["losses"])
+    for name in order:
+        model.cfg = dataclasses.replace(cfg, **MOE_DISPATCHES[name])
+        batch = res["make_batch"](step)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(res["step_fn"](model, res["opt_state"], batch)["loss"])
+        turns.append(dict(moe_dispatch=name, step=step,
+                          ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+                          peak_mem_gb=torch.cuda.max_memory_allocated()
+                          / 1e9))
+        step += 1
+    model.cfg = cfg
+    by = {}
+    for t in turns:
+        by.setdefault(t["moe_dispatch"], []).append(t["ms"])
+    return dict(turns=turns, ms_mean={k: sum(v) / len(v)
+                                      for k, v in by.items()},
+                ok=all(math.isfinite(t["loss"]) for t in turns))
+
+
+def _train_phase(phase, checks, arch, layers=0, extra=None):
+    """The float32 gradient checks (``checks``: name -> thunk returning
+    (rows, ok)), then the bf16 ``launch.train.run`` of ``arch`` (the
+    main path), one profiled step and ``extra(res)`` (a dict with
+    ``ok``); one line for the phase, failed on any check.  Returns the
+    main path's K2 launches and routes and the phase's wall seconds."""
+    t0 = time.perf_counter()
+    grad, row, ok = {}, None, True
+    try:
+        for name, thunk in checks:
+            grad[name], good = thunk()
+            ok = ok and good
+        if ok:
+            row, res, launches, routes = _train_run(arch, layers)
+            ok = row["ok"]
+            row["profile"] = _profile_step(res)
+            if extra is not None:
+                row["extra"] = extra(res)
+                ok = ok and row["extra"]["ok"]
+            del res
+            _free()
+    except Exception:
+        emit(phase, card=CARD, grad_check=grad, train=row, ok=False,
+             wall_s=time.perf_counter() - t0)
+        raise
+    wall = time.perf_counter() - t0
+    emit(phase, card=CARD, grad_check=grad, train=row, ok=ok, wall_s=wall)
+    if not ok:
+        raise AssertionError(f"{phase}: a check failed (see its line)")
+    return launches, routes, wall
+
+
+def phase_train_audio():
+    """musicgen-large: the float32 gradient check at 2 layers, then the
+    whole model (48 layers, 3.25 B) for ``TRAIN_STEPS`` bf16 steps."""
+    from repro_torch.configs import get_config
+    check = _cut(get_config("musicgen-large", dtype="float32"), 2)
+    return _train_phase("train_audio", [(
+        "musicgen-large", functools.partial(_family_grad_check, check))],
+        "musicgen-large")
+
+
+def phase_train_vision():
+    """llama-3.2-vision-11b: the float32 gradient check on one group of 5
+    layers (4 self + 1 cross) with every gate 0.5, then
+    ``VISION_TRAIN_LAYERS`` layers (8 self + 2 cross) in bf16."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama-3.2-vision-11b", dtype="float32")
+    check = _cut(cfg, cfg.cross_attn_every)
+    return _train_phase("train_vision", [(
+        "llama-3.2-vision-11b", functools.partial(_family_grad_check, check,
+                                                  gate=GATE))],
+        "llama-3.2-vision-11b", VISION_TRAIN_LAYERS)
+
+
+def phase_train_moe():
+    """mixtral-8x22b: the float32 gradient check at 1 layer with the
+    dense dispatch, dense with folded gates and gather, on one set of
+    weights; then ``MOE_TRAIN_LAYERS`` layers in bf16 (dense, the main
+    path) and the dispatches in turns on its weights."""
+    from repro_torch.configs import get_config
+    check = _cut(get_config("mixtral-8x22b", dtype="float32"), 1)
+    return _train_phase("train_moe", [(
+        "mixtral-8x22b", functools.partial(_family_grad_check, check,
+                                           dispatches=list(MOE_DISPATCHES)))],
+        "mixtral-8x22b", MOE_TRAIN_LAYERS, extra=_dispatch_turns)
+
+
+TRAIN_PHASES = {"train_audio": phase_train_audio,
+                "train_vision": phase_train_vision,
+                "train_moe": phase_train_moe}
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2892,6 +3214,14 @@ def main(argv=None):
                                                        0) + n
             k2_routes = rt if k2_routes is None else {
                 r: k2_routes[r] + rt[r] for r in k2_routes}
+    train_walls = {}
+    for phase, run in TRAIN_PHASES.items():
+        if phase in phases:
+            n, rt, train_walls[phase] = run()
+            launches["flash_attention"] = launches.get("flash_attention",
+                                                       0) + n
+            k2_routes = rt if k2_routes is None else {
+                r: k2_routes[r] + rt[r] for r in k2_routes}
     kernels = []
     for name, res, src, replaces, lib in (
             ("waterfill", wf, "waterfill.cu",
@@ -2921,6 +3251,8 @@ def main(argv=None):
                                       launches=k["launches"],
                                       held_against_plain=True)
                                  for k in kernels],
+             train_families_s=dict(train_walls,
+                                   total=sum(train_walls.values())),
              total_s=time.perf_counter() - t_start)
         # every kernel held against its plain version and launched on its
         # path in this run

@@ -7,18 +7,22 @@
 
 The reference's trainer (``repro/launch/train.py``) with its flags, plus
 ``--device`` (default ``cuda``, which raises without a card; on the card
-the forward pass runs the CUDA kernels K2 and K3).  Parameters come from
-``init_params(cfg, generator, device)`` with a ``torch.Generator``
-seeded by ``--seed``; batches are the step-keyed ``TokenPipeline``'s, so
-with atomic keep-N checkpoints a preempted run restarted with the same
-flags reproduces the remaining steps.  A SIGTERM (preemption notice)
-triggers a checkpoint before exit.  Prints the loss and ms/step every
-``--log-every`` steps, then the first and the warm ms/step and tokens/s
-(host clock around steps that end in a device read of the loss).
+the forward pass runs the CUDA kernels K2 and K3) and ``--layers`` (a
+depth cut, for a model whose whole depth does not fit one card).
+Parameters come from ``init_params(cfg, generator, device)`` with a
+``torch.Generator`` seeded by ``--seed``; batches are the step-keyed
+``TokenPipeline``'s (and, for the vision family, the stub's input drawn
+per step), so with atomic keep-N checkpoints a preempted run restarted
+with the same flags reproduces the remaining steps.  A SIGTERM
+(preemption notice) triggers a checkpoint before exit.  Prints the loss
+and ms/step every ``--log-every`` steps, then the first and the warm
+ms/step and tokens/s (host clock around steps that end in a device read
+of the loss).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import signal
 import statistics
 import time
@@ -49,6 +53,9 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to this many layers (0: its "
+                    "own depth); a vision model keeps whole groups")
     return ap.parse_args(argv)
 
 
@@ -61,6 +68,12 @@ def run(argv=None):
     args = parse_args(argv)
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        if cfg.cross_attn_every and args.layers % cfg.cross_attn_every:
+            raise ValueError(f"{cfg.name}: --layers {args.layers} is not "
+                             f"a multiple of its {cfg.cross_attn_every}"
+                             f"-layer groups")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     pipe = TokenPipeline(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch, seed=args.seed,
@@ -85,9 +98,20 @@ def run(argv=None):
             print(f"restored checkpoint at step {start_step}")
 
     def make_batch(step):
+        """The step's batch on the device: ``tokens`` (``[B, S]``, audio
+        ``[B, S, K]``) and, for the vision family, the stub's encoder
+        states drawn as the reference draws them, in the activation
+        type."""
         toks = pipe.batch(step)["tokens"]
-        return {"tokens": torch.as_tensor(toks, dtype=torch.long,
-                                          device=dev)}
+        batch = {"tokens": torch.as_tensor(toks, dtype=torch.long,
+                                           device=dev)}
+        if cfg.frontend == "vision":
+            vision = np.random.default_rng(step).standard_normal(
+                (args.batch, cfg.cross_tokens, cfg.d_model)).astype(
+                np.float32) * 0.02
+            batch["vision"] = torch.as_tensor(vision).to(
+                device=dev, dtype=cfg.activation_dtype)
+        return batch
 
     stop = {"now": False}
 

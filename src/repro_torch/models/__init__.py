@@ -2,7 +2,7 @@
 architecture families (dense, MoE, hybrid attention + Mamba-2, vision
 cross-attention, the audio frontend; int8 and ring KV caches) and the
 training path (loss, train step with gradient accumulation and remat)
-of the text families, with attention (K2) and the SSD scan (K3) as
+of every family, with attention (K2) and the SSD scan (K3) as
 hand-written CUDA kernels on the card."""
 from .config import ModelConfig
 from .convert import opt_state_from_jax, opt_state_to_jax, \

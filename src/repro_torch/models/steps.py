@@ -22,17 +22,14 @@ def softmax_cross_entropy(logits, labels):
 
 def make_loss_fn(cfg: ModelConfig, impl="auto"):
     """``loss_fn(model, batch)``: next-token cross entropy of
-    ``batch["tokens"] [B, S]`` (the text frontend; the audio loss and
-    the vision batch are not ported: training the vision and audio
-    families waits for ROADMAP.md, Queue A)."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend's loss is not ported "
-            f"to repro_torch yet (ROADMAP.md, Queue A)")
-
+    ``batch["tokens"]``, ``[B, S]`` or, for the audio frontend, ``[B, S,
+    K]`` against logits ``[B, S, K, V]`` (the mean over every position
+    and codebook); the vision frontend reads ``batch["vision"] [B, T,
+    d]``."""
     def loss_fn(model, batch):
         tokens = batch["tokens"]
-        logits, _ = forward(model, tokens, impl=impl)
+        logits, _ = forward(model, tokens, impl=impl,
+                            vision=batch.get("vision"))
         return softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
     return loss_fn
 

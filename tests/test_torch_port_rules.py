@@ -59,6 +59,11 @@ with tempfile.TemporaryDirectory() as d:
                          "--batch", "2", "--seq", "8", "--ckpt-dir", d,
                          "--device", "cpu"])
 assert len(losses) == 2
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.planner import PipelinePlan, simulate_plan
+rep = simulate_plan(get_config("qwen3-32b"), SHAPES["train_4k"],
+                    PipelinePlan(n_stages=2, n_micro=4))
+assert rep.makespan > 0
 from repro_torch.core import Simulator, make_scheduler, resolve_workers
 from repro_torch.survey import MINI_GRID, dataset_axis, time_reference_twin
 rep = Simulator(g, resolve_workers([2, 2]), make_scheduler("ws")).run()
@@ -199,14 +204,15 @@ def test_serve_cli_raises_without_a_card():
 
 def test_lm_options_not_ported_raise():
     """Every family of the registry and the int8 and ring caches
-    construct and serve on the CPU; what stays unported (the audio and
-    vision losses of training) raises with a pointer to ROADMAP.md."""
+    construct and serve on the CPU, and every family's training loss
+    builds (the audio and vision losses included)."""
     import torch
 
     from repro_torch.configs import (ARCH_NAMES, NOT_PORTED, get_config,
                                      smoke_config)
     from repro_torch.launch import serve
-    from repro_torch.models import decode_step, make_loss_fn, prefill
+    from repro_torch.models import (decode_step, init_params, make_loss_fn,
+                                    prefill)
     assert NOT_PORTED == () and len(ARCH_NAMES) == 10
     assert get_config("mixtral-8x22b").moe_experts == 8
     with pytest.raises(KeyError, match="unknown arch"):
@@ -231,10 +237,17 @@ def test_lm_options_not_ported_raise():
     res = serve.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu",
                       "--kv-dtype", "int8", "--gen", "2"])
     assert res["cfg"].kv_cache_dtype == "int8"
-    for arch in ("musicgen-large", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_loss_fn(smoke_config(arch))
-    assert callable(make_loss_fn(smoke_config("mixtral-8x22b")))
+    # every family's loss is ported: a finite loss on its smoke batch
+    g = torch.Generator().manual_seed(0)
+    for arch in ARCH_NAMES:
+        cfg = smoke_config(arch)
+        tokens, vision = serve.make_inputs(cfg, 2, 8, g, "cpu")
+        batch = {"tokens": tokens}
+        if vision is not None:
+            batch["vision"] = vision
+        model = init_params(cfg, g, device="cpu")
+        loss = make_loss_fn(cfg)(model, batch)
+        assert loss.shape == () and torch.isfinite(loss), arch
 
 
 def test_chip_smoke_fails_without_a_card():

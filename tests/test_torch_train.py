@@ -291,6 +291,9 @@ ATTN_CASES = [  # B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len, dtype
     (1, 6, 1, 16, 20, 32, True, 0, 18, "float32"),
     (2, 4, 4, 12, 12, 16, False, 0, None, "float32"),
     (2, 4, 2, 24, 24, 16, True, 8, None, "bfloat16"),
+    # cross-attention: non-causal, no kv_len, Sq > Skv and Sq < Skv
+    (2, 4, 2, 24, 16, 16, False, 0, None, "float32"),
+    (2, 4, 2, 12, 20, 16, False, 0, None, "float32"),
 ]
 
 
