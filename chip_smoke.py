@@ -8,7 +8,9 @@ static simulator and the ``genetic-vec`` scheduler on it, all with the
 max-min waterfill kernel (K1), serving and training Hymba-1.5B with
 the flash attention (K2) and Mamba-2 SSD scan (K3) kernels, serving
 the other seven architecture families through K2, and training the
-audio, vision and MoE families through K2.  Phases, each
+audio, vision and MoE families through K2, and the mesh path (a
+placed model on a one-card mesh, rank 0's share of a 256-card plan, and
+the dry run).  Phases, each
 printing one JSON line:
 
 1. ``env``: the card's name and power limit.
@@ -244,13 +246,35 @@ printing one JSON line:
     gather, fold, dense, dense, fold, gather in turns on its weights.
     The three phases print their wall seconds and their total on the
     ``kernels`` line.
-24. ``kernels``: each kernel with its launches on the main paths (K1's
+24. ``mesh``: the port's mesh and placements on the card.  (a) A real
+    one-rank NCCL group and a ``(1, 1)`` ``("data", "model")`` mesh:
+    hymba-1.5b served at full width (32 layers, bf16, batch 4, prompt
+    1536, 8 greedy tokens) with its parameters and caches placed by
+    ``param_pspecs`` / ``cache_pspecs`` and ``ShardingPolicy(seq_axis=
+    "model")``, and the float32 train step of hymba cut to 4 layers at
+    batch 2 x 2048, each against the unmeshed path on the same weights
+    in the same call: logits, tokens, loss and every gradient equal bit
+    for bit, K2 (by route) and K3 launched as often (a (1, 1) mesh issues
+    no collective and runs the same local ops).  (b) Rank 0's share of
+    mixtral-8x22b on a ``(16, 16)`` mesh of a fake group of 256 ranks on
+    the card: only its local shards are built (by the dry run's
+    ``build_cell``), one ``decode_32k`` step and, when the dry run's
+    argument bytes for ``train_4k`` fit the card's 80 GB, one
+    ``train_4k`` step (whose running out of memory is reported, not
+    failed): peak memory beside the dry run's argument bytes for the
+    same cell (the shards' bytes must equal them), the local K2 shapes
+    and launches, ms.  Fake collectives return unset
+    memory, so no value of (b) is compared or printed as a result.
+    (c) The dry run itself (``launch.dryrun.run_cell``, in a child process
+    on the CPU while (a) and (b) run): hymba-1.5b ``train_4k`` single,
+    mixtral-8x22b ``decode_32k`` multi (and the mixtral cells that (b)
+    compares with), each record's key numbers and ``trace_s``.
+25. ``kernels``: each kernel with its launches on the main paths (K1's
     summed over its path phases, K2's over ``serve_hymba``,
-    ``train_hymba``, the four serve family phases and the three train
-    family phases, K3's over
-    ``serve_hymba`` and ``train_hymba``; K1 and K2 also by route); needs
-    every kernel's check phase and the phases of its paths in the same
-    run.
+    ``train_hymba``, the four serve family phases, the three train
+    family phases and ``mesh``, K3's over ``serve_hymba``,
+    ``train_hymba`` and ``mesh``; K1 and K2 also by route); needs every
+    kernel's check phase and the phases of its paths in the same run.
 
 Every simulator phase but ``survey_engine``'s eager turns, the eager
 turn of ``static_full_width`` and the input recording of
@@ -285,7 +309,7 @@ PHASES = ("env", "build", "kernel_waterfill", "golden", "survey_mini",
           "kernel_flash_attention", "kernel_ssd", "serve_hymba",
           "train_hymba", "serve_dense", "serve_moe", "serve_vision",
           "serve_audio", "train_audio", "train_vision", "train_moe",
-          "kernels")
+          "mesh", "kernels")
 
 # the recorded dynamic rows of BENCH_PR7.json (reference package, CPU)
 GOLDEN = {
@@ -1550,6 +1574,13 @@ ATTN_CASES = (
     ("vision_self_train", 4, 32, 8, 2048, 2048, 128, None, 0, True, True),
     ("mixtral_train_w4096", 4, 48, 8, 2048, 2048, 128, None, 4096, True,
      True),
+    # the mesh phase's rank 0 of mixtral-8x22b on (16, 16): 3 of the 48
+    # query heads and the KV head they read, the batch over 16; decode_32k
+    # over the whole gathered 32768-position cache, and train_4k
+    ("mixtral_rank0_decode", 8, 3, 1, 1, 32768, 128, 32768, 4096, True,
+     True),
+    ("mixtral_rank0_train", 16, 3, 1, 4096, 4096, 128, None, 4096, True,
+     True),
 )
 ATTN_PATH = ("prefill_w1024", "prefill_w0", "decode_w1024", "decode_w0",
              "train_w1024", "train_w0")
@@ -1569,7 +1600,8 @@ ATTN_TIMED = ATTN_PATH + ("qwen3_d128_prefill", "qwen3_d128_decode",
                           "vision_self_sq2048_decode",
                           "mixtral_ring_prefill", "mixtral_ring_decode",
                           "musicgen_train", "vision_self_train",
-                          "mixtral_train_w4096")
+                          "mixtral_train_w4096", "mixtral_rank0_decode",
+                          "mixtral_rank0_train")
 # bfloat16 only: the edges of the tensor-core (Sq > 1) and split (Sq 1)
 # routes
 ATTN_EDGE_CASES = (
@@ -3138,6 +3170,338 @@ TRAIN_PHASES = {"train_audio": phase_train_audio,
                 "train_moe": phase_train_moe}
 
 
+# ------------------------------------------------------------------ mesh
+MESH_SERVE = dict(batch=4, prompt=1536, gen=8)
+MESH_TRAIN = dict(layers=4, batch=2, seq=2048)
+# phase (c): the dry run's cells, run by the card machine's Python on its
+# CPU while (a) and (b) use the card: (arch, shape, mesh)
+MESH_DRYRUN_CELLS = (("hymba-1.5b", "train_4k", "single"),
+                     ("mixtral-8x22b", "decode_32k", "multi"),
+                     ("mixtral-8x22b", "decode_32k", "single"),
+                     ("mixtral-8x22b", "train_4k", "single"))
+# phase (b) trains one step too when the dry run's argument bytes for
+# mixtral-8x22b train_4k on one card of (16, 16) fit the card's memory
+CARD_BYTES = 80e9
+
+
+def _start_mesh_dryrun(out_dir):
+    """The dry run of ``MESH_DRYRUN_CELLS`` in a child process on the CPU
+    (no card visible to it); returns the process."""
+    code = ("import sys\n"
+            "from repro_torch.launch import dryrun\n"
+            f"for a, s, m in {MESH_DRYRUN_CELLS!r}:\n"
+            "    dryrun.run_cell(a, s, m, dryrun.POLICIES['baseline'],\n"
+            "                    sys.argv[1],\n"
+            "                    with_roofline=(m == 'single'))\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(HERE, "src"))
+    return subprocess.Popen([sys.executable, "-c", code, out_dir], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, cwd=HERE)
+
+
+def _mesh_record(out_dir, arch, shape, mesh):
+    with open(os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")) as f:
+        rec = json.load(f)
+    keep = {k: rec.get(k) for k in ("ok", "n_chips", "memory",
+                                    "params_total", "params_active",
+                                    "trace_s", "error")}
+    rf = rec.get("roofline")
+    if rf:
+        keep["roofline"] = {k: rf[k] for k in (
+            "flops_per_chip", "hbm_bytes_per_chip",
+            "collective_bytes_per_chip", "compute_s", "memory_s",
+            "collective_s", "dominant", "useful_flops_ratio")}
+        keep["roofline"]["collective_counts"] = \
+            rf["collectives"]["counts_by_op"]
+    return keep
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _mesh_greedy(model, prompts, gen, policy):
+    """Prefill ``prompts`` and decode ``gen`` greedy tokens through the
+    kernels with ``policy``: every step's logits (local), the tokens, the
+    launches and the wall seconds."""
+    import torch
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.kernels import SSD_LAUNCHES as SS
+    from repro_torch.launch.serve import greedy
+    from repro_torch.models import decode_step, prefill
+    FA.reset()
+    SS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, pos = prefill(model, prompts,
+                                 cache_len=prompts.shape[1] + gen,
+                                 policy=policy)
+    outs, toks = [_local(logits)], []
+    tok = greedy(logits)
+    for _ in range(gen):
+        toks.append(_local(tok))
+        logits, cache, pos = decode_step(model, tok, cache, pos,
+                                         policy=policy)
+        outs.append(_local(logits))
+        tok = greedy(logits)
+    torch.cuda.synchronize()
+    return dict(logits=outs, tokens=torch.cat(toks, dim=1),
+                wall_s=time.perf_counter() - t0,
+                launches=dict(flash_attention=FA.count, ssd=SS.count),
+                routes=dict(FA.routes))
+
+
+def _mesh_parity(seed=0):
+    """(a): a real one-rank NCCL group and a (1, 1) mesh on the card;
+    hymba-1.5b served at full width (bf16) and the f32 train step cut to
+    ``MESH_TRAIN["layers"]`` layers, placed by ``param_pspecs`` /
+    ``cache_pspecs`` with ``ShardingPolicy(seq_axis="model")``, against
+    the unmeshed path on the same weights: bit for bit, equal launches."""
+    import copy
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.kernels import SSD_LAUNCHES as SS
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.models.params import place_batch, place_model
+    from repro_torch.models.transformer import NO_POLICY, ShardingPolicy
+    dev = torch.device("cuda", torch.cuda.current_device())
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1, device_id=dev)
+    main_path = dict(flash_attention=0, ssd=0)
+    k2_routes = None
+    try:
+        mesh = make_test_mesh((1, 1), device_type="cuda")
+        sp = ShardingPolicy(mesh=mesh, batch_axes=("data",),
+                            seq_axis="model")
+        B, P, gen = MESH_SERVE["batch"], MESH_SERVE["prompt"], \
+            MESH_SERVE["gen"]
+        cfg = get_config("hymba-1.5b")
+        g = torch.Generator(device=dev).manual_seed(seed)
+        plain = init_params(cfg, g, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                                device=dev)
+        placed = copy.deepcopy(plain)
+        place_model(placed, mesh)
+        pprompts = place_batch({"tokens": prompts}, mesh, ("data",))[
+            "tokens"]
+        runs = {}
+        for name, model, toks, pol in (("plain", plain, prompts, NO_POLICY),
+                                       ("mesh", placed, pprompts, sp),
+                                       ("mesh_warm", placed, pprompts, sp),
+                                       ("plain_warm", plain, prompts,
+                                        NO_POLICY)):
+            runs[name] = _mesh_greedy(model, toks, gen, pol)
+        serve = dict(batch=B, prompt=P, gen=gen, layers=cfg.n_layers,
+                     dtype=cfg.dtype)
+        serve["logits_equal"] = all(
+            torch.equal(a, b) for a, b in zip(runs["plain"]["logits"],
+                                             runs["mesh"]["logits"]))
+        serve["tokens_equal"] = bool(torch.equal(runs["plain"]["tokens"],
+                                                 runs["mesh"]["tokens"]))
+        serve["warm_equal"] = all(
+            torch.equal(a, b) for a, b in zip(runs["mesh"]["logits"],
+                                             runs["mesh_warm"]["logits"]))
+        for name, r in runs.items():
+            serve[f"{name}_wall_s"] = r["wall_s"]
+            serve[f"{name}_launches"] = r["launches"]
+            serve[f"{name}_routes"] = r["routes"]
+        want = dict(tc=cfg.n_layers, split=cfg.n_layers * gen, f32=0)
+        serve_ok = (serve["logits_equal"] and serve["tokens_equal"]
+                    and runs["plain"]["launches"] == runs["mesh"]["launches"]
+                    == dict(flash_attention=cfg.n_layers * (gen + 1),
+                            ssd=cfg.n_layers)
+                    and runs["plain"]["routes"] == runs["mesh"]["routes"]
+                    == want)
+        main_path = dict(runs["mesh"]["launches"])
+        k2_routes = dict(runs["mesh"]["routes"])
+        del plain, placed, runs
+        _free()
+
+        # the f32 train step, cut in depth
+        L, Bt, S = MESH_TRAIN["layers"], MESH_TRAIN["batch"], \
+            MESH_TRAIN["seq"]
+        cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=L)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        plain = init_params(cfg32, g, device=dev)
+        tokens = torch.randint(0, cfg32.vocab_size, (Bt, S), generator=g,
+                               device=dev)
+        placed = copy.deepcopy(plain)
+        place_model(placed, mesh)
+        train = dict(layers=L, batch=Bt, seq=S, dtype="float32",
+                     remat=cfg32.remat)
+        res = {}
+        for name, model, batch, pol in (
+                ("plain", plain, {"tokens": tokens}, NO_POLICY),
+                ("mesh", placed, place_batch({"tokens": tokens}, mesh,
+                                             ("data",)), sp)):
+            FA.reset()
+            SS.reset()
+            rec = _GradRecorder()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = make_train_step(cfg32, rec, policy=pol)(model, None, batch)
+            torch.cuda.synchronize()
+            res[name] = dict(loss=_local(m["loss"]),
+                             grads={n: _local(v)
+                                    for n, v in rec.grads.items()},
+                             wall_s=time.perf_counter() - t0,
+                             launches=dict(flash_attention=FA.count,
+                                           ssd=SS.count),
+                             routes=dict(FA.routes))
+        train["loss"] = float(res["plain"]["loss"])
+        train["loss_equal"] = bool(torch.equal(res["plain"]["loss"],
+                                               res["mesh"]["loss"]))
+        unequal = sorted(n for n, v in res["plain"]["grads"].items()
+                         if not torch.equal(v, res["mesh"]["grads"][n]))
+        train["grads_unequal"] = unequal
+        train["n_grads"] = len(res["plain"]["grads"])
+        for name, r in res.items():
+            train[f"{name}_wall_s"] = r["wall_s"]
+            train[f"{name}_launches"] = r["launches"]
+            train[f"{name}_routes"] = r["routes"]
+        train_ok = (train["loss_equal"] and not unequal
+                    and res["plain"]["launches"] == res["mesh"]["launches"]
+                    == dict(flash_attention=2 * L, ssd=2 * L)
+                    and res["plain"]["routes"] == res["mesh"]["routes"])
+        for k in main_path:
+            main_path[k] += res["mesh"]["launches"][k]
+        k2_routes = {r: k2_routes[r] + res["mesh"]["routes"][r]
+                     for r in k2_routes}
+        del plain, placed, res
+        _free()
+    finally:
+        dist.destroy_process_group()
+    return dict(serve=serve, train=train), serve_ok and train_ok, \
+        main_path, k2_routes
+
+
+def _mesh_rank0_step(shape_name):
+    """(b): rank 0's local shards of mixtral-8x22b on a (16, 16) mesh of
+    a fake group of 256 ranks on the card, one step through the kernels:
+    peak memory, the shards' bytes, the local K2/K3 calls and their
+    launches, ms.  Fake collectives return unset memory: no value of
+    this run is a result."""
+    import torch
+    from repro_torch.kernels import FLASH_ATTENTION_LAUNCHES as FA
+    from repro_torch.kernels import SSD_LAUNCHES as SS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_production_mesh
+    calls = {}
+    real = ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        key = (tuple(q.shape), tuple(k.shape), str(q.dtype))
+        calls[key] = calls.get(key, 0) + 1
+        return real(q, k, v, **kw)
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.flash_attention = recording
+    try:
+        with dryrun.fake_group(256):
+            mesh = make_production_mesh(device_type="cuda")
+            cfg, shape, fn, args = dryrun.build_cell(
+                "mixtral-8x22b", shape_name, mesh,
+                dryrun.POLICIES["baseline"], device="cuda", impl="auto")
+            shards = roofline.memory_stats(args, (), ())[
+                "argument_size_in_bytes"]
+            FA.reset()
+            SS.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(flash_attention=FA.count, ssd=SS.count)
+            routes = dict(FA.routes)
+            del args
+    finally:
+        ops.flash_attention = real
+    peak = torch.cuda.max_memory_allocated() - base
+    _free()
+    return dict(shape=shape_name, layers=cfg.n_layers, ms=ms,
+                peak_allocated_bytes=peak, shard_bytes=shards,
+                k2_local_calls=[dict(q=q, k=k, dtype=dt, calls=n)
+                                for (q, k, dt), n in calls.items()],
+                launches=launches, routes=routes)
+
+
+def phase_mesh():
+    """The mesh phase: (a) the (1, 1) mesh against the unmeshed path,
+    bit for bit; (b) rank 0's share of mixtral-8x22b on the card; (c) the
+    dry run on the CPU, beside them."""
+    import shutil
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="mesh_dryrun_",
+                               dir=os.path.join(HERE, "build"))
+    child = _start_mesh_dryrun(out_dir)
+    try:
+        parity, ok, launches, routes = _mesh_parity()
+        emit("mesh_parity", card=CARD, **parity, ok=ok)
+        if not ok:
+            raise AssertionError("mesh: the (1, 1) mesh path differs from "
+                                 "the unmeshed path")
+        rank0 = [_mesh_rank0_step("decode_32k")]
+        log, _ = child.communicate(timeout=900)
+        if child.returncode != 0:
+            raise AssertionError(f"mesh: the dry run failed:\n{log[-3000:]}")
+        cells = {f"{a} {s} {m}": _mesh_record(out_dir, a, s, m)
+                 for a, s, m in MESH_DRYRUN_CELLS}
+        if not all(c["ok"] for c in cells.values()):
+            raise AssertionError(f"mesh: a dry-run cell failed: {cells}")
+        train_args = cells["mixtral-8x22b train_4k single"]["memory"][
+            "argument_size_in_bytes"]
+        train_oom = None
+        if train_args < CARD_BYTES:
+            # the arguments fit; whether the step's temporaries do too is
+            # what this run measures
+            try:
+                rank0.append(_mesh_rank0_step("train_4k"))
+            except torch.OutOfMemoryError as e:
+                train_oom = dict(error=str(e).splitlines()[0],
+                                 peak_allocated_bytes=
+                                 torch.cuda.max_memory_allocated())
+            _free()
+        for r in rank0:
+            r["dryrun_argument_bytes"] = cells[
+                f"mixtral-8x22b {r['shape']} single"]["memory"][
+                "argument_size_in_bytes"]
+            for k in launches:
+                launches[k] += r["launches"][k]
+            routes = {k: routes[k] + r["routes"][k] for k in routes}
+        for r in rank0:
+            if r["shard_bytes"] != r["dryrun_argument_bytes"]:
+                raise AssertionError(f"mesh: the card's shards differ from "
+                                     f"the dry run's: {r}")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit("mesh", card=CARD, rank0=rank0, dryrun=cells,
+         train_4k_tried=train_args < CARD_BYTES, train_4k_oom=train_oom,
+         launches=launches, launch_routes=routes,
+         seconds=time.perf_counter() - t0, ok=True)
+    return launches, routes
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3222,6 +3586,12 @@ def main(argv=None):
                                                        0) + n
             k2_routes = rt if k2_routes is None else {
                 r: k2_routes[r] + rt[r] for r in k2_routes}
+    if "mesh" in phases:
+        n, rt = phase_mesh()
+        for name, c in n.items():
+            launches[name] = launches.get(name, 0) + c
+        k2_routes = rt if k2_routes is None else {
+            r: k2_routes[r] + rt[r] for r in k2_routes}
     kernels = []
     for name, res, src, replaces, lib in (
             ("waterfill", wf, "waterfill.cu",

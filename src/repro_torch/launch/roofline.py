@@ -15,16 +15,37 @@ InfiniBand link instead, 50e9 bytes/s: callers pass
   memory term     = hbm_bytes_per_chip / hbm_bw
   collective term = collective_bytes_per_chip / link_bw
 
-The reference's readers of a compiled XLA module (``shape_bytes``,
-``parse_collectives``, ``cost_dict``, ``memory_stats`` and
-``roofline_terms``, which take FLOPs, bytes and collective bytes from HLO
-text and ``cost_analysis``) have no counterpart here yet: the dry run's
-port takes the per-card totals from ``FlopCounterMode`` and
-``CommDebugMode`` and hands them to ``terms_from_totals``.
+The reference reads a compiled XLA module (the per-device SPMD
+partition: ``cost_analysis``, HLO text, ``memory_analysis``).  Here the
+dry run (``launch/dryrun.py``) runs the step itself, on one rank's local
+shards, under ``StepCost``, a dispatch mode that sees the local ops a
+DTensor program issues (it defers every DTensor op to DTensor and
+counts what that op runs on the local tensors):
+
+* ``flops``: per-card FLOPs from ``torch.utils.flop_counter``'s
+  formulas on the local shapes.  Work that every rank repeats (a
+  replicated layer) counts on every card, as XLA's per-device count
+  does; ``FlopCounterMode`` around DTensors would count global work.
+* ``bytes``: per-card bytes accessed, the sum over every local op that
+  is not a view, an allocation or a collective of its operand and result
+  bytes.  Nothing is fused, so this is an upper bound on XLA's count.
+* ``collectives()``: count and operand bytes of each collective the
+  step issues, by kind, with ``parse_collectives``' keys.
+* ``memory_stats``: the counterpart of ``memory_analysis``: argument,
+  output and alias bytes from the local shard shapes.  XLA's temp size
+  has no meta-device counterpart and is reported as absent (the card
+  pass of ``chip_smoke.py``'s ``mesh`` phase gives a card's peak).
+
+``roofline_terms`` hands these totals to ``terms_from_totals``.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +88,129 @@ def terms_from_totals(flops: float, hbm_bytes: float, coll_bytes: float,
         "useful_flops_ratio": (model_flops / (flops * n_chips)
                                if flops else 0.0),
     }
+
+
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter",
+                  "all-to-all", "collective-permute")
+
+# the c10d ops (DTensor's redistributions) by kind, matched on their
+# names without underscores
+_COLLECTIVE_KINDS = (("allgather", "all-gather"),
+                     ("allreduce", "all-reduce"),
+                     ("reducescatter", "reduce-scatter"),
+                     ("alltoall", "all-to-all"),
+                     ("broadcast", "collective-permute"))
+# no data moved: views, allocations and the collectives' bookkeeping
+_NO_BYTES = ("empty", "empty_strided", "empty_like", "new_empty",
+             "new_empty_strided", "wait_tensor", "_wrap_tensor_autograd",
+             "detach", "alias", "lift_fresh")
+
+
+def tensor_bytes(t) -> int:
+    """Bytes of the local part of a tensor (a DTensor's local shard)."""
+    local = getattr(t, "_local_tensor", t)
+    return local.numel() * local.element_size()
+
+
+def tree_bytes(tree) -> int:
+    """Local bytes of every tensor in a nested dict / list / tuple /
+    ``AdamState`` / ``nn.Module`` (its parameters)."""
+    if isinstance(tree, torch.nn.Module):
+        return sum(tensor_bytes(p) for p in tree.parameters())
+    if isinstance(tree, torch.Tensor):
+        return tensor_bytes(tree)
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return 0
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+
+
+class StepCost(TorchDispatchMode):
+    """Per-card FLOPs, bytes accessed and collectives of the local ops
+    run under it (see the module docstring)."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+        self.coll_bytes = dict.fromkeys(COLLECTIVE_OPS, 0)
+        self.coll_counts = dict.fromkeys(COLLECTIVE_OPS, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            # a DTensor op: the local ops it runs come back through here
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if any(t is not torch.Tensor and t is not torch.nn.Parameter
+               for t in types):
+            # the fake tensors of DTensor's sharding propagation
+            return out
+        name = func._overloadpacket.__name__
+        bare = name.replace("_", "")
+        kind = next((k for key, k in _COLLECTIVE_KINDS if key in bare),
+                    None)
+        if func.namespace in ("_c10d_functional", "c10d") \
+                and kind is not None:
+            self.coll_counts[kind] += 1
+            self.coll_bytes[kind] += sum(tensor_bytes(t)
+                                         for t in _tensors(args))
+            return out
+        if func.is_view or name in _NO_BYTES \
+                or func.namespace != "aten":
+            return out
+        packet = func._overloadpacket
+        if packet in flop_registry:
+            self.flops += int(flop_registry[packet](*args, **kwargs,
+                                                    out_val=out))
+        self.bytes += sum(tensor_bytes(t) for t in _tensors(args)) \
+            + sum(tensor_bytes(t) for t in _tensors(kwargs)) \
+            + sum(tensor_bytes(t) for t in _tensors(out))
+        return out
+
+    def collectives(self) -> dict:
+        """``parse_collectives``' record: operand bytes and counts by
+        kind and their totals."""
+        return {"bytes_by_op": dict(self.coll_bytes),
+                "counts_by_op": dict(self.coll_counts),
+                "total_bytes": sum(self.coll_bytes.values()),
+                "total_count": sum(self.coll_counts.values())}
+
+
+def memory_stats(args, outputs, aliased) -> dict:
+    """Per-card argument, output and alias bytes (``aliased``: the
+    outputs written in place of arguments: parameters and optimizer
+    state in training, the cache at decode) from the local shards."""
+    return {"argument_size_in_bytes": tree_bytes(args),
+            "output_size_in_bytes": tree_bytes(outputs),
+            "alias_size_in_bytes": tree_bytes(aliased),
+            "temp_size_in_bytes": None}
+
+
+def roofline_terms(cost: StepCost, n_chips: int,
+                   model_flops: float = 0.0,
+                   hw: Hardware = H100_SXM) -> dict:
+    """``terms_from_totals`` of a ``StepCost``'s per-card totals, with
+    its collectives."""
+    coll = cost.collectives()
+    out = terms_from_totals(flops=float(cost.flops),
+                            hbm_bytes=float(cost.bytes),
+                            coll_bytes=float(coll["total_bytes"]),
+                            n_chips=n_chips, model_flops=model_flops, hw=hw)
+    out["collectives"] = coll
+    return out
 
 
 def model_flops(cfg, shape) -> float:

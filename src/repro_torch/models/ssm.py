@@ -14,9 +14,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from ..kernels import ops
-from .layers import mm, rms_norm
+from .layers import like, merge_heads, mm, rms_norm, split_heads
 
 F32 = torch.float32
 
@@ -34,6 +35,47 @@ def softplus(x):
     """``log(1 + exp(x))`` without a threshold (the reference's form)."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
                                           device=x.device))
+
+
+def _step(state, dt1, A, B1, C1, x1):
+    """One step of the recurrence: ``state [B, H, N, P]``, ``dt1 [B,
+    H]``, ``A [H]``, ``B1``/``C1 [B, N]``, ``x1 [B, H, P]`` -> (``C1 .
+    state`` ``[B, H, P]`` float32, the new state)."""
+    decay = torch.exp(dt1 * A[None, :])                         # [B,H]
+    upd = torch.einsum("bn,bh,bhp->bhnp", B1.to(F32), dt1, x1.to(F32))
+    state = state * decay[..., None, None] + upd
+    return torch.einsum("bn,bhnp->bhp", C1.to(F32), state), state
+
+
+def _sharded_step(state, dt1, A, B1, C1, x1):
+    """``_step`` of DTensors in a ``local_map``, split as the cached
+    state is over ``model`` (its heads H, its state dim N or its head dim
+    P; N makes the output a partial sum over ``model``), the batch over
+    the data-parallel dims where it divides."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = state.device_mesh
+    names = mesh.mesh_dim_names
+    d = None
+    if "model" in names:
+        p = state.placements[names.index("model")]
+        d = p.dim if isinstance(p, Shard) else None
+    bt = state.shape[0]
+    st_pl = ops.placements(mesh, bt, 0, d)
+    x_pl = ops.placements(mesh, bt, 0, {1: 1, 3: 2}.get(d))
+    y_pl = list(x_pl)
+    if d == 2:
+        y_pl[names.index("model")] = Partial()
+    return local_map(
+        _step, out_placements=(y_pl, st_pl),
+        in_placements=(st_pl, ops.placements(mesh, bt, 0,
+                                             1 if d == 1 else None),
+                       ops.placements(mesh, None, 0, 0 if d == 1 else None),
+                       ops.placements(mesh, bt, 0, 1 if d == 2 else None),
+                       ops.placements(mesh, bt, 0, 1 if d == 2 else None),
+                       x_pl),
+        device_mesh=mesh, redistribute_inputs=True)(state, dt1, A, B1, C1,
+                                                    x1)
 
 
 def mamba2_block(x, p, cfg, *, cache=None, impl="auto"):
@@ -54,7 +96,8 @@ def mamba2_block(x, p, cfg, *, cache=None, impl="auto"):
 
     # short depthwise causal conv over (x, B, C) channels
     if cache is None:
-        pad = torch.zeros(B, K - 1, C, dtype=xbc.dtype, device=x.device)
+        pad = like(x, torch.zeros(B, K - 1, C, dtype=xbc.dtype,
+                                  device=x.device))
         xbc_c = torch.cat([pad, xbc], dim=1)
     else:
         xbc_c = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
@@ -64,7 +107,7 @@ def mamba2_block(x, p, cfg, *, cache=None, impl="auto"):
     xbc = torch.einsum("bskc,kc->bsc", windows.to(ct), p["conv_w"].to(ct))
     xbc = F.silu(xbc + p["conv_b"])
     xs, Bm, Cm = torch.split(xbc, [di, ns, ns], dim=-1)
-    xh = xs.reshape(B, S, nh, hd)
+    xh = split_heads(xs, nh, hd)
     A = -torch.exp(p["A_log"].to(F32))                          # [H] < 0
 
     if cache is None or S > 1:
@@ -77,18 +120,13 @@ def mamba2_block(x, p, cfg, *, cache=None, impl="auto"):
                                    return_state=True)
     else:
         # single-step recurrence (S == 1)
-        state = cache["state"]                                  # [B,H,N,P]
-        dt1 = dt[:, 0]                                          # [B,H]
-        decay = torch.exp(dt1 * A[None, :])                     # [B,H]
-        upd = torch.einsum("bn,bh,bhp->bhnp", Bm[:, 0].to(F32), dt1,
-                           xh[:, 0].to(F32))
-        state = state * decay[..., None, None] + upd
-        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].to(F32), state)
+        step = _sharded_step if isinstance(x, DTensor) else _step
+        y, new_state = step(cache["state"], dt[:, 0], A, Bm[:, 0],
+                            Cm[:, 0], xh[:, 0])
         y = y + p["D"].to(F32)[None, :, None] * xh[:, 0].to(F32)
         y = y[:, None].to(x.dtype)                              # [B,1,H,P]
-        new_state = state
 
-    y = y.reshape(B, S, di)
+    y = merge_heads(y)
     y = rms_norm(y * F.silu(z.to(F32)).to(y.dtype), p["norm"], cfg.norm_eps)
     out = mm(y, p["out_proj"]).to(x.dtype)
     new_cache = None

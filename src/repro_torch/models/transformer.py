@@ -30,20 +30,76 @@ version's, see ``kernels/ops.py``) or the plain versions everywhere
 (``torch.utils.checkpoint.checkpoint``); ``"dots"``, the same but the
 outputs of matrix products without batch dims kept (``aten.mm`` /
 ``addmm``, the reference's ``dots_with_no_batch_dims_saveable``).
+
+A model whose parameters are DTensors (``params.place_model``) runs on
+their mesh: the entry points take a ``ShardingPolicy`` that places the
+residual stream at the reference's four sites (after the embedding,
+after each layer's mixer and MLP, after each cross layer); the cache
+is placed by ``params.place_cache`` and the kernels' calls follow the
+mesh (``kernels/ops.py``).  With ``NO_POLICY`` and plain tensors
+nothing changes.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import math
+from typing import Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
+from ..kernels.ops import sharded_dims, with_partial
 from .config import ModelConfig
 from .layers import attention_block, einsum, mm, moe_block, rms_norm, \
     swiglu
+from .params import axis_sizes, place_cache, to_placements
 from .ssm import mamba2_block, ssm_dims
+
+
+# ------------------------------------------------------------- sharding
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    """Residual-stream placement policy (``mesh=None``: none).
+    ``batch_axes``: the mesh dims the batch is split over (e.g.
+    ``("pod", "data")``); ``seq_axis``: the dim the sequence is split
+    over between layers (sequence parallelism, e.g. ``"model"``)."""
+    mesh: object = None             # torch DeviceMesh
+    batch_axes: tuple = ()
+    seq_axis: Optional[str] = None
+
+    def spec(self, shape):
+        """The residual's spec: batch over ``batch_axes`` and sequence
+        over ``seq_axis``, each where it divides (the reference's
+        conditions)."""
+        sizes = axis_sizes(self.mesh)
+        spec = [None] * len(shape)
+        bsz = math.prod(sizes[a] for a in self.batch_axes)
+        if self.batch_axes and bsz > 1 and shape[0] % bsz == 0:
+            spec[0] = (self.batch_axes if len(self.batch_axes) > 1
+                       else self.batch_axes[0])
+        ssz = sizes.get(self.seq_axis, 1) if self.seq_axis else 1
+        if len(shape) >= 3 and ssz > 1 and shape[1] % ssz == 0:
+            spec[1] = self.seq_axis
+        return tuple(spec)
+
+    def constrain(self, x):
+        """``x`` redistributed to ``spec``; a plain tensor passes only
+        without a mesh."""
+        if self.mesh is None or x.dim() < 2:
+            return x
+        if not isinstance(x, DTensor):
+            raise TypeError("a ShardingPolicy with a mesh needs DTensor "
+                            "activations: place the model and its inputs "
+                            "first (models.params)")
+        return x.redistribute(self.mesh,
+                              to_placements(self.mesh, self.spec(x.shape)))
+
+
+NO_POLICY = ShardingPolicy()
 
 
 def n_cross_layers(cfg: ModelConfig) -> int:
@@ -128,7 +184,8 @@ class Layer(nn.Module):
                                     "w3": ((d, f), None),
                                     "w2": ((f, d), None)}, act, device)
 
-    def forward(self, x, positions, cache_pos, kv_len, cache, impl, cfg):
+    def forward(self, x, positions, cache_pos, kv_len, cache, impl, cfg,
+                policy=NO_POLICY):
         new_cache = {}
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         y = torch.zeros_like(x)
@@ -147,13 +204,13 @@ class Layer(nn.Module):
             y = y + ys
             if sc is not None:
                 new_cache["ssm"] = sc
-        x = x + y
+        x = policy.constrain(x + y)
         if self.mlp is not None:
             x = x + swiglu(rms_norm(x, self.ln2, cfg.norm_eps), self.mlp)
         elif self.moe is not None:
             x = x + moe_block(rms_norm(x, self.ln2, cfg.norm_eps), self.moe,
-                              cfg)
-        return x, new_cache
+                              cfg, policy)
+        return policy.constrain(x), new_cache
 
 
 class CrossLayer(nn.Module):
@@ -169,12 +226,12 @@ class CrossLayer(nn.Module):
                                             device=device))
         self.attn = _attn_params(cfg, device, cross=True)
 
-    def forward(self, x, vision, cache, impl, cfg):
+    def forward(self, x, vision, cache, impl, cfg, policy=NO_POLICY):
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         y, kv = attention_block(
             h, self.attn, cfg, window=0, is_cross=True, kv_source=vision,
             cache=None if cache is None else cache["kv"], impl=impl)
-        return x + y, ({} if kv is None else {"kv": kv})
+        return policy.constrain(x + y), ({} if kv is None else {"kv": kv})
 
 
 class Transformer(nn.Module):
@@ -281,15 +338,70 @@ def make_cache(cfg: ModelConfig, batch_size: int, length: int, device,
 
 
 # ------------------------------------------------------------- forward
-def _embed(model, tokens):
-    """Token embeddings; audio: the sum over the codebooks, k = 0..K-1
-    in order, of ``embed[k][tokens[..., k]]``."""
-    if model.cfg.frontend != "audio":
-        return model.embed[tokens]
-    x = model.embed[0][tokens[..., 0]]
-    for k in range(1, model.cfg.codebooks):
-        x = x + model.embed[k][tokens[..., k]]
+def _lookup(table, tokens, audio, lo=None):
+    """``table[tokens]`` (audio: the sum over the codebooks, k = 0..K-1
+    in order, of ``table[k][tokens[..., k]]``).  ``lo``: the table holds
+    only the vocabulary rows from ``lo`` on, and ids outside them give
+    zeros."""
+    def rows(t, ids):
+        if lo is None:
+            return t[ids]
+        n = t.shape[0]
+        hit = (ids >= lo) & (ids < lo + n)
+        return torch.where(hit[..., None], t[torch.where(hit, ids - lo, 0)],
+                           0)
+    if not audio:
+        return rows(table, tokens)
+    x = rows(table[0], tokens[..., 0])
+    for k in range(1, table.shape[0]):
+        x = x + rows(table[k], tokens[..., k])
     return x
+
+
+def _sharded_embed(model, tokens):
+    """The lookup on a placed ``embed``: the table gathered over the
+    data-parallel dims (ZeRO-3), kept split over ``model``.  A vocab
+    split is a masked local lookup whose partial sums the next
+    placement reduces; a d_model split gives the local columns."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    table = model.embed
+    mesh = table.device_mesh
+    audio = model.cfg.frontend == "audio"
+    v_dim = 1 if audio else 0
+    names = mesh.mesh_dim_names
+    t_pl = [Replicate()] * mesh.ndim
+    out_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+              for p in tokens.placements]
+    tok_pl = list(out_pl)
+    split = None
+    if "model" in names:
+        mi = names.index("model")
+        p = table.placements[mi]
+        if isinstance(p, Shard):
+            t_pl[mi] = p
+            split = "vocab" if p.dim == v_dim else "d"
+            out_pl[mi] = Partial() if split == "vocab" else Shard(
+                tokens.dim() - (1 if audio else 0))
+
+    def local(tl, ids):
+        lo = None
+        if split == "vocab":
+            lo = mesh.get_local_rank("model") * tl.shape[v_dim]
+        return _lookup(tl, ids, audio, lo)
+
+    # each data-parallel rank's rows give a partial gradient of the table
+    t_grad = with_partial(t_pl, sharded_dims(tok_pl))
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(t_pl, tok_pl),
+                     in_grad_placements=(t_grad, tok_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+
+
+def _embed(model, tokens):
+    if isinstance(model.embed, DTensor):
+        return _sharded_embed(model, tokens)
+    return _lookup(model.embed, tokens, model.cfg.frontend == "audio")
 
 
 def _unembed(model, x):
@@ -330,55 +442,85 @@ def remat(layer, cfg):
                              preserve_rng_state=False, **kw)
 
 
+def _local_device(t):
+    return t.to_local().device if isinstance(t, DTensor) else t.device
+
+
+def _keep_placements(new, old):
+    """A layer's new cache with each DTensor placed as the one it
+    replaces (the reference's ``out_shardings`` of the cache)."""
+    if isinstance(new, dict):
+        return {k: _keep_placements(v, old[k]) for k, v in new.items()}
+    if isinstance(new, DTensor) and new.placements != old.placements:
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
 def forward(model: Transformer, tokens, cache=None, cache_pos: int = 0,
-            impl="auto", vision=None):
+            impl="auto", vision=None, policy: ShardingPolicy = NO_POLICY):
     """tokens: [B, S] integer ([B, S, K] audio); ``vision``: [B, T, d]
     (vision family; at decode the cross layers read their cache).
     cache=None: full forward, differentiable when grad mode is on.
     Otherwise prefill / decode with the list from ``make_cache``
-    (updated and returned).  Returns (logits [B, S, V] ([B, S, K, V]
-    audio), cache)."""
+    (updated and returned).  ``policy`` places the residual stream of
+    a model on a mesh.  Returns (logits [B, S, V] ([B, S, K, V] audio),
+    cache)."""
     cfg = model.cfg
     act = cfg.activation_dtype
+    dev = _local_device(tokens)
     x = _embed(model, tokens) * torch.tensor(cfg.d_model ** 0.5, dtype=act,
-                                             device=tokens.device)
+                                             device=dev)
+    x = policy.constrain(x)
     B, S = tokens.shape[:2]
     kv_len = cache_pos + S if cache is not None else None
-    positions = (cache_pos + torch.arange(S, device=tokens.device))[None, :]
+    positions = (cache_pos + torch.arange(S, device=dev))[None, :]
     positions = positions.expand(B, S)
     for i, (cross, j) in enumerate(layer_order(cfg)):
         c = None if cache is None else cache[i]
         if cross:
             layer = model.cross_layers[j]
-            args = (x, vision, c, impl, cfg)
+            args = (x, vision, c, impl, cfg, policy)
         else:
             layer = model.layers[j]
-            args = (x, positions, cache_pos, kv_len, c, impl, cfg)
+            args = (x, positions, cache_pos, kv_len, c, impl, cfg, policy)
         if cache is None:
             x, _ = remat(layer, cfg)(*args)
         else:
-            x, cache[i] = layer(*args)
+            x, new = layer(*args)
+            cache[i] = _keep_placements(new, c)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return _unembed(model, x), cache
 
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens, cache_len=None, impl="auto",
-            vision=None):
-    """Run the prompt; returns (last-position logits, cache, next_pos)."""
+            vision=None, policy: ShardingPolicy = NO_POLICY):
+    """Run the prompt; returns (last-position logits, cache, next_pos).
+    DTensor ``tokens`` (a placed model) need ``policy``'s mesh: the
+    cache is made as local shards placed by ``params.cache_pspecs``
+    over ``policy.batch_axes``."""
     cfg = model.cfg
     B, S = tokens.shape[:2]
-    cache = make_cache(cfg, B, cache_len or cfg.max_cache_len or S,
-                       tokens.device)
+    length = cache_len or cfg.max_cache_len or S
+    if isinstance(tokens, DTensor):
+        if policy.mesh is None:
+            raise ValueError("prefill of DTensor tokens needs a "
+                             "ShardingPolicy with their mesh")
+        cache = place_cache(cfg, make_cache(cfg, B, length, "meta"),
+                            policy.mesh, policy.batch_axes,
+                            device=_local_device(tokens))
+    else:
+        cache = make_cache(cfg, B, length, tokens.device)
     logits, cache = forward(model, tokens, cache=cache, cache_pos=0,
-                            impl=impl, vision=vision)
+                            impl=impl, vision=vision, policy=policy)
     return logits[:, -1:], cache, S
 
 
 @torch.no_grad()
-def decode_step(model: Transformer, tokens, cache, pos: int, impl="auto"):
+def decode_step(model: Transformer, tokens, cache, pos: int, impl="auto",
+                policy: ShardingPolicy = NO_POLICY):
     """One decode step.  tokens [B, 1] ([B, 1, K] audio); pos: the Python
     int position."""
     logits, cache = forward(model, tokens, cache=cache, cache_pos=pos,
-                            impl=impl)
+                            impl=impl, policy=policy)
     return logits, cache, pos + 1

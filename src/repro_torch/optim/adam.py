@@ -11,6 +11,12 @@ are keyed by parameter name (``model.named_parameters()``), and
 place.  The step count is an int32 scalar on the host, so the schedule
 costs no device read.  Gradient accumulation and bf16 gradient
 compression live in the train step (``models/steps.py``).
+
+A model placed on a mesh has DTensor parameters: each moment is made in
+its parameter's placement, and a gradient whose data-parallel sum is
+still pending (``Partial``, as autograd returns it; cast to bfloat16
+first under gradient compression) is reduced into that placement
+before the update.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 F32 = torch.float32
 
@@ -40,7 +47,7 @@ class AdamW:
     decay_steps: int = 0          # cosine decay horizon (0 = constant)
 
     def init(self, model) -> AdamState:
-        m = {n: torch.zeros(p.shape, dtype=F32, device=p.device)
+        m = {n: torch.zeros_like(p, dtype=F32)
              for n, p in model.named_parameters()}
         return AdamState(step=torch.zeros((), dtype=torch.int32), m=m,
                          v={n: t.clone() for n, t in m.items()})
@@ -72,8 +79,11 @@ class AdamW:
         bc1 = float(f(1.0) - f(b1) ** f(step))
         bc2 = float(f(1.0) - f(b2) ** f(step))
         for name, p in model.named_parameters():
-            g = grads[name].to(F32)
             m, v = state.m[name], state.v[name]
+            g = grads[name]
+            if isinstance(g, DTensor) and g.placements != m.placements:
+                g = g.redistribute(m.device_mesh, m.placements)
+            g = g.to(F32)
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g * g)
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
