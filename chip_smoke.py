@@ -33,7 +33,10 @@ printing one JSON line:
    every K1 call of one blevel run of the ``survey_full_width`` cell;
    both routes must be bitwise equal to the plain version on all of
    them, and each replays them from a CUDA graph (in turns); the plain
-   version gives the filling rounds per row.
+   version gives the filling rounds per row.  Last, the per-edge
+   simulator's solve: F 992 and F 2016 flows per row (R 96, W 32), more
+   than one block's threads, on the block route: bitwise, timed from a
+   CUDA graph, beside the plain version and a bytes bound.
 4. ``golden``: the dynamic simulator against the reference package's
    recorded ``BENCH_PR7.json`` dynamic rows (blevel, maxmin, frontier
    on, 100 MiB/s, exact imode, msd 0).
@@ -269,8 +272,25 @@ printing one JSON line:
     on the CPU while (a) and (b) run): hymba-1.5b ``train_4k`` single,
     mixtral-8x22b ``decode_32k`` multi (and the mixtral cells that (b)
     compares with), each record's key numbers and ``trace_s``.
-25. ``kernels``: each kernel with its launches on the main paths (K1's
-    summed over its path phases, K2's over ``serve_hymba``,
+25. ``escape_hatches``: the simulators' per-edge escape hatches
+    (``flow_slots=False``: one max-min flow per input edge, K1 at F = E;
+    ``frontier=False``: every edge and task scanned per event).  The
+    golden rows per hatch, in turns with the default path (default,
+    flow_slots off, frontier off, and back): GOLDEN's events and steps
+    exactly, makespan and transferred within RTOL, events/s each turn.
+    The mini survey's T160 group (every scheduler x netmodel, 8x4 and
+    1x8+4x2) and the full grid's T512 blevel group on 32x4 (in turns)
+    per hatch against the default path in the same call: makespan, ok,
+    steps and events bitwise, transferred within 1e-5.  Every simulator
+    call captures one CUDA graph; K1's launches on the hatch runs count
+    toward its main path.
+26. ``simlint``: ``repro_torch.analysis`` on the card: the source rules
+    over the port and the step checks of the 27 targets
+    (``check_all(device="cuda")``): no active finding and no host read
+    inside any step; the counts per rule.
+27. ``kernels``: each kernel with its launches on the main paths (K1's
+    summed over its path phases and ``escape_hatches``, K2's over
+    ``serve_hymba``,
     ``train_hymba``, the four serve family phases, the three train
     family phases and ``mesh``, K3's over ``serve_hymba``,
     ``train_hymba`` and ``mesh``; K1 and K2 also by route); needs every
@@ -309,7 +329,7 @@ PHASES = ("env", "build", "kernel_waterfill", "golden", "survey_mini",
           "kernel_flash_attention", "kernel_ssd", "serve_hymba",
           "train_hymba", "serve_dense", "serve_moe", "serve_vision",
           "serve_audio", "train_audio", "train_vision", "train_moe",
-          "mesh", "kernels")
+          "mesh", "escape_hatches", "simlint", "kernels")
 
 # the recorded dynamic rows of BENCH_PR7.json (reference package, CPU)
 GOLDEN = {
@@ -820,12 +840,38 @@ def phase_kernel_waterfill(seed=0, path_rows=96, path_w=32):
             plain_ms=p_ms, rounds_mean=float(rounds.float().mean()),
             rounds_max=int(rounds.max()), bytes=nbytes, ops=ops,
             bound_ms=bound_ms, bound_by=bound_by)
+    # the per-edge simulator's solve (flow_slots=False): F = E flows per
+    # row (992 at the T512 bucket, 2016 at T2048), past one block of
+    # threads, on the block route; bitwise, then timed
+    per_edge = []
+    for F in (992, 2016):
+        sets = _flow_sets(rng, path_rows, path_w, F)
+        check(f"per_edge_F{F}", *sets)
+        src, dst, active, caps = (torch.as_tensor(x, device=dev)
+                                  for x in sets)
+
+        def kernel():
+            return wk._waterfill(src, dst, active, caps, caps)
+        p_ms = cuda_time_ms(lambda: plain(src, dst, active, caps, caps),
+                            iters=5, warmup=1)
+        _, rounds = waterfill_rounds(src, dst, active, caps, caps)
+        nbytes, ops = _waterfill_work(rounds, path_rows, F, path_w)
+        bound_ms, bound_by = _bound(nbytes, ops, F32_OPS_PER_S)
+        per_edge.append(dict(
+            rows=path_rows, W=path_w, F=F, route=wk.route_for(F, path_w),
+            ms=cuda_graph_ms(kernel, iters=50), timed="cuda_graph",
+            eager_ms=cuda_time_ms(kernel, iters=50), plain_ms=p_ms,
+            rounds_mean=float(rounds.float().mean()),
+            rounds_max=int(rounds.max()), bytes=nbytes, ops=ops,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     path = _path_input_timing()
     worst_abs = max(worst_abs, path["max_abs"])
     emit("kernel_waterfill", checks=checks, max_abs=worst_abs,
          all_bitwise=all(c["bitwise"] for c in checks),
-         timing=list(timings.values()), path_inputs=path, card=CARD)
-    return dict(max_abs_err=worst_abs, path=timings[path_rows])
+         timing=list(timings.values()), per_edge=per_edge,
+         path_inputs=path, card=CARD)
+    return dict(max_abs_err=worst_abs, path=timings[path_rows],
+                per_edge=per_edge)
 
 
 def _path_input_timing(plain_sample=16):
@@ -882,7 +928,7 @@ def _path_input_timing(plain_sample=16):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def _golden_row(name, spec_graph):
+def _golden_row(name, spec_graph, **opts):
     import numpy as np
     import torch
     from repro_torch.core import parse_cluster
@@ -896,14 +942,16 @@ def _golden_row(name, spec_graph):
     shape = (t_bucket(spec.T), round_up(spec.O), round_up(spec.E))
     cores = parse_cluster(want["cluster"])
     d, s = encode_imode(spec_graph, "exact")
+    from repro_torch.core.vectorized import capture_counter
     run = make_bucket_dynamic_simulator(len(cores), cores, "blevel",
-                                        "maxmin", frontier=True,
-                                        device="cuda")
+                                        "maxmin", device="cuda",
+                                        **(opts or dict(frontier=True)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = run(pad_spec(spec, shape), pad_to(d, shape[0]),
-              pad_to(s, shape[1]), 0.0, 0.0, np.float32(100 * 1024 * 1024),
-              0)
+    with capture_counter() as cc:
+        res = run(pad_spec(spec, shape), pad_to(d, shape[0]),
+                  pad_to(s, shape[1]), 0.0, 0.0,
+                  np.float32(100 * 1024 * 1024), 0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = dict(makespan=float(res.makespan), transferred=float(
@@ -916,7 +964,8 @@ def _golden_row(name, spec_graph):
             and abs(got["transferred"] - want["transferred"])
             <= RTOL * abs(want["transferred"]))
     return dict(graph=name, shape=list(shape), got=got, want=want,
-                match=good, wall_s=wall,
+                match=good, wall_s=wall, sim_calls=cc.calls,
+                captures=cc.captures,
                 events_per_s=got["n_events"] / wall), good
 
 
@@ -935,6 +984,205 @@ def phase_golden():
             raise AssertionError(f"golden row {name} does not match: {row}")
     emit("golden", rows=rows, ok=True,
          waterfill_launches=WATERFILL_LAUNCHES.count)
+
+
+# the per-edge escape hatches of the simulators, beside the default path
+HATCHES = {"default": {}, "flow_slots_off": dict(flow_slots=False),
+           "frontier_off": dict(frontier=False)}
+HATCH_TURNS = ("default", "flow_slots_off", "frontier_off", "frontier_off",
+               "flow_slots_off", "default")
+
+
+def _mini_t160_group():
+    """(entries, shape, batch, W, cores, points, caps) of the mini
+    survey's T160 bucket on its one cluster group (8x4, 1x8+4x2)."""
+    from repro_torch.core.graphs import encode_graph_batch, survey_names
+    from repro_torch.survey import (MINI_GRID, cluster_groups,
+                                    full_frontier_caps, grid_points)
+    encoded, groups = encode_graph_batch(
+        survey_names(MINI_GRID["graphs_per_family"]), seed=0, bucket=True)
+    grp = next(g for g in groups if g.shape[0] == 160)
+    (wb, _, cores2d), = cluster_groups(MINI_GRID["clusters"])
+    return ([encoded[n] for n in grp.names], grp, wb, cores2d,
+            grid_points(MINI_GRID), full_frontier_caps(grp.shape))
+
+
+def _hatch_call(runner, points):
+    """One call of a grid runner: ``(result, wall s, K1 launches, K1
+    routes, simulator calls, captures)``, K1 zeroed just before."""
+    import torch
+    from repro_torch.core.vectorized import capture_counter
+    from repro_torch.kernels import WATERFILL_LAUNCHES
+    WATERFILL_LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with capture_counter() as cc:
+        r = runner(points)
+    torch.cuda.synchronize()
+    return (r, time.perf_counter() - t0, WATERFILL_LAUNCHES.count,
+            dict(WATERFILL_LAUNCHES.routes), cc.calls, cc.captures)
+
+
+def _same_as_default(res, base):
+    """makespan, ok, n_steps, n_events bitwise; transferred within 1e-5."""
+    import numpy as np
+    exact = all(np.array_equal(getattr(res, f), getattr(base, f),
+                               equal_nan=True)
+                for f in ("makespan", "ok", "n_steps", "n_events"))
+    x_rel = float(np.max(np.abs(res.transferred - base.transferred)
+                         / np.maximum(np.abs(base.transferred), 1.0)))
+    return exact, x_rel
+
+
+def phase_escape_hatches():
+    """The simulators' per-edge escape hatches on the card
+    (``flow_slots=False``: one max-min flow per input edge, K1 at F = E;
+    ``frontier=False``: every edge and task scanned per event).  (a) The
+    golden rows per hatch, in turns with the default path: GOLDEN's
+    events and steps exactly, makespan and transferred within RTOL.  (b)
+    The mini survey's T160 group (every scheduler x netmodel) and the
+    full grid's T512 blevel group on 32x4 (in turns) per hatch against
+    the default path in the same call: makespan, ok, steps and events
+    bitwise, transferred within 1e-5.  Every simulator call captures one
+    CUDA graph.  Returns K1's launches and routes on the hatch runs."""
+    import numpy as np
+    from repro_torch.core.graphs import make_graph
+    from repro_torch.core.vectorized import make_grid_runner
+    launches = [0, {"warp": 0, "block": 0}]
+    failures = []
+
+    def count(call):
+        launches[0] += call[2]
+        for r, n in call[3].items():
+            launches[1][r] += n
+
+    golden = []
+    for name, graph in (("merge_triplets", make_graph("merge_triplets",
+                                                      seed=0)),
+                        ("t2048_layered", t2048_graph())):
+        by_mode = {m: [] for m in HATCHES}
+        for mode in HATCH_TURNS:
+            from repro_torch.kernels import WATERFILL_LAUNCHES
+            WATERFILL_LAUNCHES.reset()
+            row, good = _golden_row(name, graph, **HATCHES[mode])
+            row.update(k1=WATERFILL_LAUNCHES.count,
+                       k1_routes=dict(WATERFILL_LAUNCHES.routes))
+            if mode != "default":
+                count((None, None, row["k1"], row["k1_routes"]))
+            by_mode[mode].append(row)
+            if not (good and row["sim_calls"] == row["captures"] == 1):
+                failures.append(f"golden {name} {mode}: {row}")
+        golden.append(dict(
+            graph=name, order=",".join(HATCH_TURNS),
+            got={m: rs[0]["got"] for m, rs in by_mode.items()},
+            events_per_s={m: [r["events_per_s"] for r in rs]
+                          for m, rs in by_mode.items()},
+            k1_routes={m: rs[0]["k1_routes"] for m, rs in by_mode.items()},
+            captures={m: [r["captures"] for r in rs]
+                      for m, rs in by_mode.items()}))
+        # F = E: the block route past 128 flows (merge_triplets fits a
+        # warp)
+        E = by_mode["flow_slots_off"][0]["shape"][2]
+        if E > 128 and by_mode["flow_slots_off"][0]["k1_routes"][
+                "block"] <= 0:
+            failures.append(f"golden {name}: flow_slots=False did not "
+                            f"launch K1's block route at F = E = {E}")
+
+    # (b) the mini survey's T160 group, every scheduler x netmodel
+    from repro_torch.survey import MINI_GRID
+    entries, grp, wb, cores2d, points, caps = _mini_t160_group()
+    mini = []
+    for sched in MINI_GRID["schedulers"]:
+        for netmodel in MINI_GRID["netmodels"]:
+            calls = {}
+            for mode in HATCHES:
+                runner = make_grid_runner(
+                    entries, sched, wb, cores2d, netmodel=netmodel,
+                    shape=grp.shape, batch=grp.batch, device="cuda",
+                    frontier_caps=caps, **HATCHES[mode])
+                calls[mode] = _hatch_call(runner, points)
+                if mode != "default":
+                    count(calls[mode])
+            base = calls["default"][0]
+            row = dict(scheduler=sched, netmodel=netmodel,
+                       rows=int(base.ok.size), all_ok=bool(base.ok.all()),
+                       events=int(base.n_events.sum()))
+            for mode, c in calls.items():
+                exact, x_rel = _same_as_default(c[0], base)
+                row[mode] = dict(wall_s=c[1], k1=c[2], k1_routes=c[3],
+                                 sim_calls=c[4], captures=c[5],
+                                 bitwise=exact, transferred_max_rel=x_rel)
+                if not (exact and x_rel <= 1e-5 and c[4] == c[5] == 1):
+                    failures.append(f"T160 {sched}/{netmodel} {mode}: "
+                                    f"{row[mode]}")
+            mini.append(row)
+
+    # (b) the full grid's T512 blevel group on 32x4, in turns
+    _, grp512, _, points512 = _full_width_group()
+    runners = {m: _full_width_runner("blevel", "auto", **HATCHES[m])
+               for m in HATCHES}
+    turns = {m: [] for m in HATCHES}
+    for mode in HATCH_TURNS:
+        turns[mode].append(_hatch_call(runners[mode], points512))
+    base = turns["default"][0][0]
+    ev = int(base.n_events.sum())
+    full = dict(scheduler="blevel", bucket=grp512.label, cluster="32x4",
+                rows=int(base.ok.size), all_ok=bool(base.ok.all()),
+                events=ev, order=",".join(HATCH_TURNS))
+    for mode, cs in turns.items():
+        if mode != "default":
+            for c in cs:
+                count(c)
+        checks = [_same_as_default(c[0], base) for c in cs]
+        full[mode] = dict(wall_s=[c[1] for c in cs],
+                          events_per_s=[ev / c[1] for c in cs],
+                          k1=[c[2] for c in cs], k1_routes=[c[3] for c in cs],
+                          sim_calls=[c[4] for c in cs],
+                          captures=[c[5] for c in cs],
+                          bitwise=[x[0] for x in checks],
+                          transferred_max_rel=[x[1] for x in checks])
+        if not (all(x[0] and x[1] <= 1e-5 for x in checks)
+                and all(c[4] == c[5] == 1 for c in cs)):
+            failures.append(f"T512 blevel {mode}: {full[mode]}")
+    if full["flow_slots_off"]["k1_routes"][0]["block"] <= 0:
+        failures.append("T512: flow_slots=False did not launch K1's block "
+                        "route at F = E")
+    ok = not failures and full["all_ok"] and all(r["all_ok"] for r in mini)
+    emit("escape_hatches", golden=golden, t160=mini, t512=full,
+         waterfill_launches=launches[0], waterfill_launch_routes=launches[1],
+         failures=failures, card=CARD, ok=ok)
+    if not ok:
+        raise AssertionError(f"escape_hatches: {failures}")
+    return launches[0], launches[1]
+
+
+def phase_simlint():
+    """The port's simlint on the card: the source rules over the port
+    (``check_paths``) and the step checks of all 27 targets
+    (``check_all(device="cuda")``).  Fails unless no finding is active,
+    every target ran its step, and no step read the host."""
+    from repro_torch.analysis import RULES, active, check_all, check_paths
+    t0 = time.perf_counter()
+    ast_found = check_paths()
+    stats = {}
+    step_found = check_all(device="cuda", stats=stats)
+    found = ast_found + step_found
+    act = active(found)
+    host_reads = sum(s["host_reads"] for s in stats.values())
+    ok = not act and host_reads == 0 and len(stats) == 27
+    emit("simlint", targets=len(stats), active=len(act),
+         per_rule={r: sum(f.rule == r for f in act) for r in sorted(RULES)},
+         suppressed_per_rule={r: sum(f.rule == r and f.suppressed
+                                     for f in found) for r in sorted(RULES)},
+         host_reads_in_steps=host_reads,
+         step_ops=sum(s["ops"]["step"] for s in stats.values()),
+         prologue_ops=sum(s["ops"]["prologue"] for s in stats.values()),
+         findings=[f.render() for f in act],
+         seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError(f"simlint: {len(act)} active finding(s), "
+                             f"{host_reads} host read(s) in steps, "
+                             f"{len(stats)} targets")
 
 
 def phase_survey_mini():
@@ -3592,6 +3840,13 @@ def main(argv=None):
             launches[name] = launches.get(name, 0) + c
         k2_routes = rt if k2_routes is None else {
             r: k2_routes[r] + rt[r] for r in k2_routes}
+    if "escape_hatches" in phases:
+        n, rt = phase_escape_hatches()
+        launches["waterfill"] = launches.get("waterfill", 0) + n
+        k1_routes = rt if k1_routes is None else {
+            r: k1_routes[r] + rt[r] for r in k1_routes}
+    if "simlint" in phases:
+        phase_simlint()
     kernels = []
     for name, res, src, replaces, lib in (
             ("waterfill", wf, "waterfill.cu",
@@ -3614,6 +3869,9 @@ def main(argv=None):
         # the main path's launches by route (null without its phase)
         if name == "waterfill":
             kernels[-1]["launch_routes"] = k1_routes
+            kernels[-1]["per_edge"] = [
+                {k: r[k] for k in ("F", "ms", "plain_ms", "bound_ms",
+                                   "bound_by")} for r in res["per_edge"]]
         if name == "flash_attention":
             kernels[-1]["launch_routes"] = k2_routes
     if "kernels" in phases:

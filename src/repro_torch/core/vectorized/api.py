@@ -188,15 +188,12 @@ def make_grid_runner(entries, scheduler, n_workers, cores, *,
     the same results bit for bit)."""
     dev = resolve_device(device)
     cfg = _merge_config(config, opts)
-    if cfg.flow_slots is False or cfg.frontier is False:
-        raise NotImplementedError(
-            "flow_slots=False / frontier=False are not ported to "
-            "repro_torch")
     kwargs = dict(
         netmodel=netmodel,
         max_steps=cfg.max_steps if max_steps is None else max_steps,
         shape=shape, batch=batch, est_cache=est_cache, device=dev,
         waterfill_impl=cfg.waterfill_impl, flow_rounds=cfg.flow_rounds,
+        flow_slots=cfg.flow_slots, frontier=cfg.frontier,
         frontier_caps=cfg.frontier_caps, check_every=cfg.check_every,
         step_graph=cfg.step_graph)
     if cfg.engine == "vmap":

@@ -22,8 +22,10 @@ program): once captured, a step costs the host one launch.  ``greedy``
 places tasks in a loop whose length the host reads, so its placement
 prologue runs eagerly before each replay.
 
-Semantics are the reference's default configuration (flow slots on for
-``maxmin``, none for ``simple``, the ready frontiers on):
+Semantics are the reference's: by default flow slots on for ``maxmin``
+and none for ``simple``, the ready frontiers on, and its per-edge escape
+hatches ``flow_slots=False`` (one flow per input edge) and
+``frontier=False`` (every edge and task scanned at every event):
 
 * the static simulator takes a fixed schedule with msd 0 and no
   decision delay;
@@ -130,14 +132,23 @@ def _frontier_append(fr, new_mask, ids):
     return fr, overflowed
 
 
-def _resolve_frontier(frontier) -> bool:
-    """The ``frontier`` option: ``None``/``True`` select the frontier
-    path, the only one the port carries.  ``frontier=False`` (the
-    reference's per-edge escape hatch) is not ported."""
+def _resolve_frontier(frontier, *, simple: bool, use_slots: bool,
+                      dynamic: bool) -> bool:
+    """The ``frontier`` tri-state of the reference: ``None`` selects the
+    frontier path wherever it is supported, ``False`` the per-edge scan.
+    The dynamic max-min frontier derives in-flight state from the slot
+    pool, so it needs flow slots: asking for both ``frontier=True`` and
+    ``flow_slots=False`` there raises, while ``None`` quietly stays on
+    the per-edge path."""
     if frontier is False:
-        raise NotImplementedError(
-            "frontier=False (the per-edge escape hatch) is not ported to "
-            "repro_torch; the port runs the default frontier path")
+        return False
+    if dynamic and not simple and not use_slots:
+        if frontier is True:
+            raise ValueError(
+                "frontier=True requires flow_slots on the dynamic max-min "
+                "path (in-flight flow state is derived from the slot "
+                "pool); drop flow_slots=False or pass frontier=False")
+        return False
     return True
 
 
@@ -270,28 +281,42 @@ def _frontier_caps(frontier_caps, T, O, E):
     return min(frontier_caps[0], E), min(frontier_caps[1], T)
 
 
+def _slot_counts(st, W, slot_dst):
+    """Appendix-A occupancy from the flow-slot pool: in-flight downloads
+    per destination worker ``[R, W]`` and per (source, destination) pair
+    ``[R, W*W]``."""
+    occ = st["slot_edge"] >= 0
+    R = occ.shape[0]
+    dcnt = occ.view(R, W, DOWNLOAD_SLOTS).sum(dim=2)
+    pcnt = scatter_count(W * W, st["slot_src"].long() * W + slot_dst, occ)
+    return dcnt, pcnt
+
+
 def _flow_rounds(st, c_dst, c_src, c_prio, c_bytes, W, flow_rounds,
-                 slot_dst):
+                 slot_dst, edge_counts=None):
     """The max-min flow picks of one event over the candidate frontier
     ``st["fr_flow"]`` (``c_*``: each candidate's destination, source,
     download priority and bytes): ``flow_rounds`` rounds of at most one
-    pick per destination worker under the Appendix-A slot limits, each
-    pick moved into the flow-slot pool.  ``-edge_id`` reproduces the
-    reference's tie-break."""
-    R = c_dst.shape[0]
+    pick per destination worker under the Appendix-A slot limits.  With
+    the slot pool each pick moves into it; with per-edge flows
+    (``edge_counts``: the occupancy ``(dcnt, pcnt)`` of the in-flight
+    edges) every pick starts its edge in ``st["f_started"]``.
+    ``-edge_id`` reproduces the reference's tie-break."""
     fr = st["fr_flow"]
     alive = fr >= 0
     c_pair = c_src * W + c_dst
     neg_id = -fr.float()
-    occ = st["slot_edge"] >= 0
-    dcnt = occ.view(R, W, DOWNLOAD_SLOTS).sum(dim=2)
-    pcnt = scatter_count(W * W, st["slot_src"].long() * W + slot_dst, occ)
+    if edge_counts is None:
+        dcnt, pcnt = _slot_counts(st, W, slot_dst)
+    else:
+        dcnt, pcnt = edge_counts
     alive0 = alive
     for _ in range(flow_rounds):
         eligible = (alive & (take(dcnt, c_dst) < DOWNLOAD_SLOTS)
                     & (take(pcnt, c_pair) < PAIR_SLOTS))
         pick = _pick_per_bucket(c_dst, W, eligible, c_prio, neg_id)
-        st = _acquire_slots(st, pick, c_dst, c_src, c_bytes, W, ids=fr)
+        if edge_counts is None:
+            st = _acquire_slots(st, pick, c_dst, c_src, c_bytes, W, ids=fr)
         # occupancy moves only by this round's own picks: at most one
         # per destination worker
         pw_pair = scatter_max(W, c_dst, torch.where(pick, c_pair, -1), -1)
@@ -299,8 +324,23 @@ def _flow_rounds(st, c_dst, c_src, c_prio, c_bytes, W, flow_rounds,
         dcnt = dcnt + picked_w.long()
         pcnt = pcnt + scatter_count(W * W, pw_pair.clamp(min=0), picked_w)
         alive = alive & ~pick
-    st["fr_flow"] = torch.where(alive0 & ~alive, -1, fr)
+    picked = alive0 & ~alive
+    if edge_counts is not None:
+        # one deferred write for all rounds' starts
+        st["f_started"] = _set_where(st["f_started"], picked, fr)
+    st["fr_flow"] = torch.where(picked, -1, fr)
     return st
+
+
+def _set_where(flags, mask, idx):
+    """``flags`` (bool ``[R, n]``) with True written at ``idx[r, j]``
+    wherever ``mask[r, j]``: the reference's ``.at[where(mask, idx,
+    n)].set(True, mode="drop")``, through a buffer one entry wider."""
+    R, n = flags.shape
+    out = torch.cat([flags, torch.zeros(R, 1, dtype=torch.bool,
+                                        device=flags.device)], dim=1)
+    out.scatter_(1, torch.where(mask, idx, n), True)
+    return out[:, :n]
 
 
 def _task_rounds(st, c_w, c_cpus, c_prio, c_fin, W, max_cores):
@@ -365,7 +405,9 @@ def _advance(st, rates, active, rem, granule, next_extra=None):
     f_eta = torch.where(active & (rates > 0), rem / safe_rates, INF)
     f_eta = torch.where(f_eta <= gran[:, None], 0.0, f_eta)
     if f_eta.shape[1]:
-        f_next = now + f_eta.amin(dim=1)
+        # inactive and rate-0 lanes are inf (the where above), so the
+        # unmasked min is exact
+        f_next = now + f_eta.amin(dim=1)  # simlint: disable=PY205
     else:
         f_next = torch.full_like(now, INF)
     nxt = torch.minimum(t_next, f_next)
@@ -394,6 +436,11 @@ def _resolve_step_graph(step_graph: str, device) -> bool:
                          f"simulator runs on {device}")
     return step_graph == "graph" or (step_graph == "auto" and on_card)
 
+
+# a private hook of the step checks (``repro_torch.analysis``): when
+# set, ``_drive`` hands it ``(st, live, body, cond, prologue)`` once per
+# call, before the first step
+_DRIVE_OBSERVER = None
 
 # process-wide odometers of the event loops: ``calls`` (simulator calls),
 # ``captures`` (one per call whose step ran from a CUDA graph) and
@@ -464,6 +511,8 @@ def _drive(st, body, cond, check_every, graph=False, device=None,
         else (lambda st, live: body(prologue(st, live), live))
     st = {k: v.clone() for k, v in st.items()}   # the carry's own tensors
     live = cond(st)
+    if _DRIVE_OBSERVER is not None:
+        _DRIVE_OBSERVER(st, live, body, cond, prologue)
     GRAPH_EVENTS["calls"] += 1
     replay = free = None
     try:
@@ -485,11 +534,13 @@ def _drive(st, body, cond, check_every, graph=False, device=None,
     return st
 
 
-def _live(steps_cap):
+def _live(steps_cap, stop_on_overflow=True):
+    """The loop condition.  On the frontier path an overflowed frontier
+    is no longer sound, so its row stops and reports; the per-edge path
+    runs on, as the reference's does (``ok`` is poisoned either way)."""
     def cond(st):
-        # an overflowed frontier is no longer sound — stop and report
-        return ((~st["t_done"].all(dim=1)) & (st["steps"] < steps_cap)
-                & ~st["overflow"])
+        live = (~st["t_done"].all(dim=1)) & (st["steps"] < steps_cap)
+        return live & ~st["overflow"] if stop_on_overflow else live
     return cond
 
 
@@ -506,14 +557,10 @@ def _result(st, task_valid, transferred, unbatched):
     return res
 
 
-def _check_netmodel_options(netmodel, flow_slots, check_every):
+def _check_netmodel_options(netmodel, check_every):
     if netmodel not in ("maxmin", "simple"):
         raise ValueError(f"unknown netmodel {netmodel!r} (have 'maxmin', "
                          f"'simple')")
-    if flow_slots is False:
-        raise NotImplementedError(
-            "flow_slots=False (the per-edge escape hatch) is not ported to "
-            "repro_torch; the port runs the default flow-slot path")
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
 
@@ -547,20 +594,25 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
     ``max_cores`` to pass it at call time).  An unbatched assignment
     gives an unbatched result.
 
-    The configuration is the reference's default: the ready frontiers
-    on, flow slots on for ``maxmin`` and none for ``simple``.
-    ``flow_slots=False`` and ``frontier=False`` (its per-edge escape
-    hatches) are not ported and raise.  ``device``, ``check_every``,
-    ``waterfill_impl`` and ``step_graph`` are as for
-    ``make_bucket_dynamic_simulator``; the whole step is captured."""
-    _check_netmodel_options(netmodel, flow_slots, check_every)
-    _resolve_frontier(frontier)
+    The default is the reference's: the ready frontiers on, flow slots
+    on for ``maxmin`` and none for ``simple``.  Its per-edge escape
+    hatches are the reference's too: ``flow_slots=False`` keeps one
+    ``[R, E]`` flow per input edge (the max-min solve then runs over
+    ``F = E`` flows), ``frontier=False`` scans every edge and task at
+    every event in place of the bounded frontiers.  ``device``,
+    ``check_every``, ``waterfill_impl`` and ``step_graph`` are as for
+    ``make_bucket_dynamic_simulator``; the whole step is captured in
+    every mode."""
+    _check_netmodel_options(netmodel, check_every)
+    simple = netmodel == "simple"
+    use_slots_cfg = flow_slots is not False and not simple
+    use_frontier = _resolve_frontier(frontier, simple=simple,
+                                     use_slots=use_slots_cfg, dynamic=False)
     dev = resolve_device(device)
     graph = _resolve_step_graph(step_graph, dev)
     W = n_workers
     cores_default = _resolve_cores(n_workers, cores)
     max_cores = _max_cores(cores_default, max_cores)
-    simple = netmodel == "simple"
     wf = None if simple else _make_waterfill(waterfill_impl, dev, graph)
     S = W * DOWNLOAD_SLOTS
 
@@ -585,7 +637,9 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
         sizes = (g.sizes if sizes is None
                  else _rows_arg(sizes, R, torch.float32, dev))
         bandwidth_ = as_rows(bandwidth, R, torch.float32, dev)
-        use_slots = not simple and E > 0
+        use_slots = use_slots_cfg and E > 0
+        # the frontier's own flow list: max-min flows, slots or per edge
+        flow_frontier = use_frontier and not simple and E > 0
         e_task, e_obj, prod_e = g.e_task, g.e_obj, g.prod_e
         n_inputs, cpus = g.n_inputs, g.cpus
         task_valid, edge_valid = g.task_valid, g.edge_valid
@@ -594,6 +648,7 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
         # the schedule is fixed, so every flow's ends are known up front
         f_dst = take(assignment, e_task)           # flow = input edge
         f_src = take(take(assignment, g.producer), e_obj)
+        f_pair = f_src * W + f_dst
         prio_e = take(priority, e_task)
         cross = (f_src != f_dst) & edge_valid
         # dedup: one flow per (object, destination) key, carried by the
@@ -609,10 +664,10 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
         slot_dst_k = slot_dst.int().expand(R, S).contiguous()
         caps = bandwidth_[:, None].expand(R, W).contiguous()
         granule = _granule(dev)
+        e_ids_r = e_ids.expand(R, E)
+        # the per-edge max-min solve reads the flows' ends as int32
+        f_src_k, f_dst_k = f_src.int(), f_dst.int()
 
-        fr_task, ov0 = _frontier_append(
-            torch.full((R, CT), -1, dtype=torch.int64, device=dev),
-            (n_inputs <= 0) & task_valid, t_ids)
         st = dict(
             now=torch.zeros(R, device=dev),
             t_started=~task_valid,
@@ -621,31 +676,77 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
             free=cores_t.clone(),
             steps=torch.zeros(R, dtype=torch.int64, device=dev),
             n_events=torch.zeros(R, dtype=torch.int64, device=dev),
-            overflow=ov0,
-            sat_cnt=torch.zeros(R, T, dtype=torch.int64, device=dev),
-            fr_task=fr_task,
+            overflow=torch.zeros(R, dtype=torch.bool, device=dev),
         )
+        if use_frontier:
+            st["fr_task"], st["overflow"] = _frontier_append(
+                torch.full((R, CT), -1, dtype=torch.int64, device=dev),
+                (n_inputs <= 0) & task_valid, t_ids)
+            st["sat_cnt"] = torch.zeros(R, T, dtype=torch.int64, device=dev)
+        if flow_frontier:
+            st.update(in_cnt=torch.zeros(R, T, dtype=torch.int64,
+                                         device=dev),
+                      fr_flow=torch.full((R, CF), -1, dtype=torch.int64,
+                                         device=dev))
         if use_slots:
             st.update(
                 slot_edge=torch.full((R, S), -1, dtype=torch.int64,
                                      device=dev),
                 slot_src=torch.zeros(R, S, dtype=torch.int32, device=dev),
                 slot_rem=torch.zeros(R, S, device=dev),
-                in_cnt=torch.zeros(R, T, dtype=torch.int64, device=dev),
-                fr_flow=torch.full((R, CF), -1, dtype=torch.int64,
-                                   device=dev),
-                transferred=torch.zeros(R, device=dev),
             )
+        if use_frontier and use_slots:
+            # flow identity lives in the slot pool, satisfaction in
+            # sat_cnt: no per-edge carry at all
+            st["transferred"] = torch.zeros(R, device=dev)
         elif E > 0:
-            # simple netmodel: flows are the input edges, no slot limits
             st.update(f_started=torch.zeros(R, E, dtype=torch.bool,
                                             device=dev),
-                      f_done=torch.zeros(R, E, dtype=torch.bool, device=dev),
-                      f_rem=f_bytes.clone())
+                      f_done=torch.zeros(R, E, dtype=torch.bool, device=dev))
+            if not use_slots:
+                st["f_rem"] = f_bytes.clone()
+
+        def edge_counts(st):
+            """Appendix-A occupancy of the in-flight per-edge flows."""
+            act = st["f_started"] & ~st["f_done"] & needed
+            return scatter_count(W, f_dst, act), scatter_count(W * W, f_pair,
+                                                               act)
+
+        def rates_of(st):
+            """``(active, rem, rates)`` of this event's flows."""
+            if use_slots:
+                active = st["slot_edge"] >= 0
+                return active, st["slot_rem"], wf(st["slot_src"], slot_dst_k,
+                                                  active, caps)
+            if E == 0:
+                active = torch.zeros(R, 0, dtype=torch.bool, device=dev)
+                rem = torch.zeros(R, 0, device=dev)
+                return active, rem, rem
+            active = st["f_started"] & ~st["f_done"] & needed
+            if simple:
+                return active, st["f_rem"], waterfill_simple(active,
+                                                              bandwidth_)
+            return active, st["f_rem"], wf(f_src_k, f_dst_k, active, caps)
+
+        def advance(st):
+            """The time advance and the completions of this event."""
+            active, rem, rates = rates_of(st)
+            _, now, rem, done_now, t_newly = _advance(st, rates, active, rem,
+                                                      granule)
+            st["free"] = st["free"] + torch.zeros(
+                R, W, dtype=torch.int64, device=dev).scatter_add_(
+                    1, assignment, torch.where(t_newly, cpus, 0))
+            st["now"] = now
+            st["t_done"] = st["t_done"] | t_newly
+            st["steps"] = st["steps"] + 1
+            st["n_events"] = (st["n_events"] + t_newly.sum(dim=1)
+                              + done_now.sum(dim=1))
+            return st, rem, done_now, t_newly
 
         def body(st, live):
+            """One event of the frontier path."""
             st = dict(st)
-            if use_slots:
+            if flow_frontier:
                 # the download priority stays exact: one scatter-max over
                 # all edges into the (object, destination) key space per
                 # event, gathered at the candidates
@@ -657,32 +758,13 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
                 st = _flow_rounds(st, take(f_dst, cid), take(f_src, cid),
                                   take(keymax, take(key, cid)),
                                   take(f_bytes, cid), W, flow_rounds,
-                                  slot_dst)
+                                  slot_dst, None if use_slots
+                                  else edge_counts(st))
             tid = st["fr_task"].clamp(min=0)
             st = _task_rounds(st, take(assignment, tid), take(cpus, tid),
                               take(priority, tid), take(durations, tid), W,
                               max_cores)
-            if use_slots:
-                active = st["slot_edge"] >= 0
-                rem = st["slot_rem"]
-                rates = wf(st["slot_src"], slot_dst_k, active, caps)
-            elif E > 0:
-                active = st["f_started"] & ~st["f_done"] & needed
-                rem = st["f_rem"]
-                rates = waterfill_simple(active, bandwidth_)
-            else:
-                active = torch.zeros(R, 0, dtype=torch.bool, device=dev)
-                rem = rates = torch.zeros(R, 0, device=dev)
-            _, now, rem, done_now, t_newly = _advance(st, rates, active, rem,
-                                                      granule)
-            st["free"] = st["free"] + torch.zeros(
-                R, W, dtype=torch.int64, device=dev).scatter_add_(
-                    1, assignment, torch.where(t_newly, cpus, 0))
-            st["now"] = now
-            st["t_done"] = st["t_done"] | t_newly
-            st["steps"] = st["steps"] + 1
-            st["n_events"] = (st["n_events"] + t_newly.sum(dim=1)
-                              + done_now.sum(dim=1))
+            st, rem, done_now, t_newly = advance(st)
             if E == 0:
                 return st
             t_newly_e = take(t_newly, prod_e)
@@ -700,9 +782,10 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
                 newly_done_e = done_now
                 st["f_rem"] = rem
                 st["f_done"] = st["f_done"] | done_now
-                # no slot limits: produced flows start at once (active
-                # from the next event on)
-                st["f_started"] = st["f_started"] | (needed & t_newly_e)
+                if simple:
+                    # no slot limits: produced flows start at once
+                    # (active from the next event on)
+                    st["f_started"] = st["f_started"] | (needed & t_newly_e)
             # frontier maintenance: fold this event's completions into
             # the incremental counts, then append the new candidates
             moved_sat = cross & take(newly_done_e, rep_c)
@@ -714,7 +797,7 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
             st["sat_cnt"] = sat_cnt
             st["fr_task"], ov = _frontier_append(st["fr_task"], newly_en,
                                                  t_ids)
-            if use_slots:
+            if flow_frontier:
                 st["in_cnt"] = st["in_cnt"] + scatter_count(
                     T, e_task, t_newly_e & edge_valid)
                 st["fr_flow"], ov_f = _frontier_append(
@@ -723,8 +806,79 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
             st["overflow"] = st["overflow"] | ov
             return st
 
-        st = _drive(st, body, _live(steps_cap), check_every, graph, dev)
-        if use_slots:
+        def start_flows_edges(st):
+            """Flow starts of the per-edge scan: every produced, needed,
+            not-started edge is a candidate."""
+            produced = take(st["t_done"], prod_e)
+            cnt = scatter_count(T, e_task, produced & edge_valid)
+            raw = torch.where(edge_valid, prio_e + READY_BOOST * take(
+                cnt >= n_inputs, e_task).float(), NEG)
+            f_prio = take(scatter_max(O * W, key, raw, NEG), key)
+            base = needed & ~st["f_started"] & produced
+            if simple:
+                st["f_started"] = st["f_started"] | base
+                return st
+            for _ in range(flow_rounds):
+                dcnt, pcnt = (_slot_counts(st, W, slot_dst) if use_slots
+                              else edge_counts(st))
+                eligible = (base & (take(dcnt, f_dst) < DOWNLOAD_SLOTS)
+                            & (take(pcnt, f_pair) < PAIR_SLOTS))
+                pick = _pick_per_bucket(f_dst, W, eligible, f_prio)
+                base = base & ~pick
+                st["f_started"] = st["f_started"] | pick
+                if use_slots:
+                    st = _acquire_slots(st, pick, f_dst, f_src, f_bytes, W,
+                                        ids=e_ids_r)
+            return st
+
+        def start_tasks_edges(st):
+            """Appendix-A start rounds over every task: enabled once each
+            input edge is satisfied at the consumer's worker."""
+            if E > 0:
+                local = take(st["t_done"], prod_e) & ~cross & edge_valid
+                moved = take(st["f_done"], rep_c) & cross
+                cnt = scatter_count(T, e_task, local | moved)
+            else:
+                cnt = torch.zeros(R, T, dtype=torch.int64, device=dev)
+            enabled = (cnt >= n_inputs) & ~st["t_started"]
+            for _ in range(max_cores):
+                free_at = take(st["free"], assignment)
+                waiting = enabled & ~st["t_started"]
+                blocked = waiting & (cpus > free_at)
+                maxblk = _bucket_max(assignment, W,
+                                     torch.where(blocked, priority, NEG))
+                cand = (waiting & (cpus <= free_at)
+                        & (priority >= take(maxblk, assignment)))
+                pick = _pick_per_bucket(assignment, W, cand, priority)
+                st["t_started"] = st["t_started"] | pick
+                st["t_finish"] = torch.where(
+                    pick, st["now"][:, None] + durations, st["t_finish"])
+                st["free"] = st["free"] - torch.zeros(
+                    R, W, dtype=torch.int64, device=dev).scatter_add_(
+                        1, assignment, torch.where(pick, cpus, 0))
+            return st
+
+        def body_edges(st, live):
+            """One event of the per-edge path (``frontier=False``)."""
+            st = dict(st)
+            if E > 0:
+                st = start_flows_edges(st)
+            st = start_tasks_edges(st)
+            st, rem, done_now, _ = advance(st)
+            if use_slots:
+                se = st["slot_edge"]
+                st["slot_rem"] = rem
+                st["slot_edge"] = torch.where(done_now, -1, se)
+                st["f_done"] = st["f_done"] | scatter_or(
+                    E, se.clamp(min=0), done_now)
+            elif E > 0:
+                st["f_rem"] = rem
+                st["f_done"] = st["f_done"] | done_now
+            return st
+
+        st = _drive(st, body if use_frontier else body_edges,
+                    _live(steps_cap, use_frontier), check_every, graph, dev)
+        if use_frontier and use_slots:
             transferred = st["transferred"]
         elif E > 0:
             transferred = torch.where(needed & st["f_done"], f_bytes,
@@ -798,8 +952,11 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
     ``device`` (default ``"cuda"``) is where the rows run; it raises
     when CUDA is requested and no card is present.  ``check_every`` is
     how many steps pass between the host's reads of "is any row still
-    live".  ``flow_slots=False`` and ``frontier=False`` (the reference's
-    per-edge escape hatches) are not ported and raise.
+    live".  ``flow_slots=False`` and ``frontier=False`` are the
+    reference's per-edge escape hatches: one ``[R, E]`` flow per input
+    edge, every edge and task scanned at every event.  The max-min
+    frontier needs the slot pool, so ``flow_slots=False`` also turns the
+    frontier off there (``frontier=True`` with it raises).
 
     ``step_graph`` (``_resolve_step_graph``): ``"auto"`` replays each
     call's event step from a CUDA graph on a card and runs it eagerly on
@@ -811,15 +968,16 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
     if scheduler not in VEC_SCHEDULERS:
         raise KeyError(f"unknown vectorized scheduler {scheduler!r} "
                        f"(have {sorted(VEC_SCHEDULERS)})")
-    _check_netmodel_options(netmodel, flow_slots, check_every)
-    _resolve_frontier(frontier)
+    _check_netmodel_options(netmodel, check_every)
+    simple = netmodel == "simple"
+    use_slots_cfg = flow_slots is not False and not simple
+    use_frontier = _resolve_frontier(frontier, simple=simple,
+                                     use_slots=use_slots_cfg, dynamic=True)
     dev = resolve_device(device)
     graph = _resolve_step_graph(step_graph, dev)
     W = n_workers
     cores_default = _resolve_cores(n_workers, cores)
     max_cores = _max_cores(cores_default, max_cores)
-    simple = netmodel == "simple"
-    use_slots_cfg = not simple
     wf = None if simple else _make_waterfill(waterfill_impl, dev, graph)
     S = W * DOWNLOAD_SLOTS
     dynamic_sched = VEC_SCHEDULERS[scheduler] == "dynamic"
@@ -851,6 +1009,9 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
                      else 10 * (T + E) + 8 * W + 1024)
         cores_t = _cores_arg(cores, cores_default, R, dev)
         use_slots = use_slots_cfg and E > 0
+        # flow identity in the slot pool and per-key bools: no per-edge
+        # flow carry at all
+        carried_keys = use_frontier and use_slots
         e_task, e_obj, prod_e = g.e_task, g.e_obj, g.prod_e
         producer, n_inputs, cpus = g.producer, g.n_inputs, g.cpus
         task_valid, edge_valid = g.task_valid, g.edge_valid
@@ -911,26 +1072,43 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             steps=zl(R),
             n_events=zl(R),
             overflow=zb(R),
-            enq_t=zb(R, T),
-            in_cnt=zl(R, T),
-            fr_task=torch.full((R, CT), -1, dtype=torch.int64, device=dev),
         )
+        if use_frontier:
+            st.update(enq_t=zb(R, T), in_cnt=zl(R, T),
+                      fr_task=torch.full((R, CT), -1, dtype=torch.int64,
+                                         device=dev))
+            if E > 0:
+                st.update(key_q=zb(R, F), key_done=zb(R, F))
         if use_slots:
             st.update(
                 slot_edge=torch.full((R, S), -1, dtype=torch.int64,
                                      device=dev),
                 slot_src=torch.zeros(R, S, dtype=torch.int32, device=dev),
                 slot_rem=zf(R, S),
-                fr_flow=torch.full((R, CF), -1, dtype=torch.int64,
-                                   device=dev),
-                transferred=zf(R),
             )
+        if carried_keys:
+            st.update(fr_flow=torch.full((R, CF), -1, dtype=torch.int64,
+                                         device=dev),
+                      transferred=zf(R))
         else:
-            # simple netmodel (or no edges): flows are the input edges
-            st.update(f_started=zb(R, E), f_done=zb(R, E),
-                      f_rem=e_bytes.clone())
-        if E > 0:
-            st.update(key_q=zb(R, F), key_done=zb(R, F))
+            # flows are the input edges
+            st.update(f_started=zb(R, E), f_done=zb(R, E))
+            if not use_slots:
+                st["f_rem"] = e_bytes.clone()
+
+        def edge_views(st):
+            """Per input edge: the consumer's and the producer's worker
+            and the (object, destination) dedup key (meaningful for
+            assigned consumers of valid edges only)."""
+            aw_e = take(st["aw"], e_task)
+            src_e = take(st["aw"], prod_e)
+            return aw_e, src_e, e_obj * W + aw_e.clamp(min=0)
+
+        def inputs_produced(st):
+            if use_frontier:
+                return st["in_cnt"] >= n_inputs
+            return scatter_count(T, e_task, take(st["t_done"], prod_e)
+                                 & edge_valid) >= n_inputs
 
         # --------------------------------------------------- scheduler
         def apply_due(st):
@@ -944,34 +1122,36 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
 
         def invoke(st, live):
             due = st["events"] & (st["last"] + msd_ <= st["now"] + TIME_EPS)
-            ready_t = st["in_cnt"] >= n_inputs
+            ready_t = inputs_produced(st)
             ready_un = (ready_t & (st["aw"] < 0) & (st["pw"] < 0)
                         & ~st["t_done"])
             # only rows that invoke now (and are live) place anything; the
             # placements of the others are discarded, so skip them
             placing = ready_un & (due & live)[:, None]
-            if bool(placing.any()):
+            # greedy's prologue reads the host by design: it runs eagerly
+            # before each replay of the captured rest of the step
+            if bool(placing.any()):  # simlint: disable=PY201,PY205
                 if E == 0:
                     cost_tw = zf(R, T, W)
                 else:
                     prod = take(st["t_done"], producer)          # [R, O]
                     prod_w = take(st["aw"], producer)
-                    done_ow = st["key_done"].view(R, O, W)
-                    if use_slots:
+                    if carried_keys:
+                        # per-key views straight from the carried key
+                        # bools and the slot pool
+                        done_ow = st["key_done"]
                         sk = take(e_obj, st["slot_edge"].clamp(min=0)) * W \
                             + slot_dst
                         dl_ow = scatter_or(F, sk, st["slot_edge"] >= 0)
                     else:
-                        key_e = e_obj * W + take(st["aw"], e_task).clamp(
-                            min=0)
+                        key_e = edge_views(st)[2]
                         done_ow = scatter_or(F, key_e, st["f_done"])
                         dl_ow = scatter_or(F, key_e,
                                            st["f_started"] & ~st["f_done"])
-                        done_ow = done_ow.view(R, O, W)
-                    dl_ow = dl_ow.view(R, O, W)
                     local_ow = (prod_w[:, :, None] == w_ids) \
                         & prod[:, :, None]
-                    missing = ~(local_ow | done_ow | dl_ow)
+                    missing = ~(local_ow | done_ow.view(R, O, W)
+                                | dl_ow.view(R, O, W))
                     size_now = torch.where(prod, sizes_true, est_size)
                     cost_tw = bucket_transfer_costs(g, size_now, missing,
                                                     table)
@@ -1005,12 +1185,120 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
                                 take(cpus, tid), take(st["ap"], tid),
                                 take(durations_true, tid), W, max_cores)
 
+        def start_flows_edges(st):
+            """Flow starts of the per-edge scan: the smallest wanted edge
+            of an (object, destination) key claims it when it starts."""
+            aw_e, src_e, key_e = edge_views(st)
+            prod_done = take(st["t_done"], prod_e)
+            cross = ((aw_e >= 0) & (src_e >= 0) & (src_e != aw_e)
+                     & edge_valid)
+            raw = take(st["ap"], e_task) + READY_BOOST * take(
+                inputs_produced(st), e_task).float()
+            raw = torch.where((aw_e >= 0) & edge_valid, raw, NEG)
+            f_prio = take(scatter_max(F, key_e, raw, NEG), key_e)
+            handled = take(scatter_or(F, key_e, st["f_started"]), key_e)
+            if simple:
+                eligible = cross & prod_done & ~handled
+                rep = scatter_min(F, key_e, torch.where(eligible, e_ids, E), E)
+                st["f_started"] = st["f_started"] | (
+                    eligible & (take(rep, key_e) == e_ids))
+                return st
+            bucket = aw_e.clamp(min=0)
+            src_c = src_e.clamp(min=0)
+            pair = src_c * W + bucket
+            base = cross & prod_done & ~handled
+            for _ in range(flow_rounds):
+                if use_slots:
+                    dcnt, pcnt = _slot_counts(st, W, slot_dst)
+                else:
+                    act = st["f_started"] & ~st["f_done"]
+                    dcnt = scatter_count(W, bucket, act)
+                    pcnt = scatter_count(W * W, pair, act)
+                eligible = (base & (take(dcnt, bucket) < DOWNLOAD_SLOTS)
+                            & (take(pcnt, pair) < PAIR_SLOTS))
+                # same key => same bucket, so one pick also dedups; all
+                # same-key edges leave the base once one of them starts
+                pick = _pick_per_bucket(bucket, W, eligible, f_prio)
+                base = base & ~take(scatter_or(F, key_e, pick), key_e)
+                st["f_started"] = st["f_started"] | pick
+                if use_slots:
+                    st = _acquire_slots(st, pick, bucket, src_c, e_bytes, W,
+                                        ids=e_ids.expand(R, E))
+            return st
+
+        def start_tasks_edges(st):
+            """Appendix-A start rounds over every task: enabled once each
+            input edge is satisfied at the consumer's worker."""
+            if E == 0:
+                enabled = ~st["t_started"] & (st["aw"] >= 0)
+            else:
+                aw_e, src_e, key_e = edge_views(st)
+                local = take(st["t_done"], prod_e) & (src_e == aw_e)
+                moved = take(scatter_or(F, key_e, st["f_done"]), key_e)
+                sat = (aw_e >= 0) & (local | moved) & edge_valid
+                enabled = ((scatter_count(T, e_task, sat) >= n_inputs)
+                           & ~st["t_started"] & (st["aw"] >= 0))
+            bucket = st["aw"].clamp(min=0)
+            for _ in range(max_cores):
+                free_at = take(st["free"], bucket)
+                waiting = enabled & ~st["t_started"]
+                blocked = waiting & (cpus > free_at)
+                maxblk = _bucket_max(bucket, W,
+                                     torch.where(blocked, st["ap"], NEG))
+                cand = (waiting & (cpus <= free_at)
+                        & (st["ap"] >= take(maxblk, bucket)))
+                pick = _pick_per_bucket(bucket, W, cand, st["ap"])
+                st["t_started"] = st["t_started"] | pick
+                st["t_finish"] = torch.where(
+                    pick, st["now"][:, None] + durations_true,
+                    st["t_finish"])
+                st["free"] = st["free"] - torch.zeros(
+                    R, W, dtype=torch.int64, device=dev).scatter_add_(
+                        1, bucket, torch.where(pick, cpus, 0))
+            return st
+
         def rates_of(st):
-            if not use_slots:
-                return waterfill_simple(st["f_started"] & ~st["f_done"],
-                                        bandwidth_)
-            occ = st["slot_edge"] >= 0
-            return wf(st["slot_src"], slot_dst_k, occ, caps)
+            """``(active, rem, rates)`` of this event's flows."""
+            if use_slots:
+                active = st["slot_edge"] >= 0
+                return active, st["slot_rem"], wf(st["slot_src"], slot_dst_k,
+                                                  active, caps)
+            active = st["f_started"] & ~st["f_done"]
+            if simple or E == 0:
+                return active, st["f_rem"], waterfill_simple(active,
+                                                              bandwidth_)
+            aw_e, src_e, _ = edge_views(st)
+            return active, st["f_rem"], wf(src_e.clamp(min=0).int(),
+                                           aw_e.clamp(min=0).int(), active,
+                                           caps)
+
+        def advance(st):
+            """The time advance and the completions of this event."""
+            active, rem, rates = rates_of(st)
+            # pending applies: the times are inf when unset and padded
+            # tasks never get a pending slot, so the unmasked min is exact
+            next_extra = st["pt"].amin(dim=1)  # simlint: disable=PY205
+            if dynamic_sched:
+                now = st["now"]
+                next_extra = torch.minimum(next_extra, torch.where(
+                    st["events"], torch.maximum(now, st["last"] + msd_),
+                    INF))
+            _, now, rem, done_now, t_newly = _advance(st, rates, active, rem,
+                                                      granule, next_extra)
+            # finished tasks all have aw >= 0
+            st["free"] = st["free"] + torch.zeros(
+                R, W, dtype=torch.int64, device=dev).scatter_add_(
+                    1, st["aw"].clamp(min=0), torch.where(t_newly, cpus, 0))
+            if use_frontier and E > 0:
+                st["in_cnt"] = st["in_cnt"] + scatter_count(
+                    T, e_task, take(t_newly, prod_e) & edge_valid)
+            st["now"] = now
+            st["t_done"] = st["t_done"] | t_newly
+            st["events"] = st["events"] | t_newly.any(dim=1)
+            st["steps"] = st["steps"] + 1
+            st["n_events"] = (st["n_events"] + t_newly.sum(dim=1)
+                              + done_now.sum(dim=1))
+            return st, rem, done_now
 
         # -------------------------------------------------------- body
         def prologue(st, live):
@@ -1022,7 +1310,8 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             return apply_due(st)             # decision_delay == 0
 
         def body(st, live):
-            """The step after ``prologue`` (greedy), or all of it."""
+            """The frontier step after ``prologue`` (greedy), or all of
+            it."""
             st = dict(st)
             if not dynamic_sched:
                 st = apply_due(st)
@@ -1033,9 +1322,7 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             keymax = None
             key_e = None
             if E > 0:
-                aw_e = take(st["aw"], e_task)
-                src_e = take(st["aw"], prod_e)
-                key_e = e_obj * W + aw_e.clamp(min=0)
+                aw_e, src_e, key_e = edge_views(st)
                 assigned = (aw_e >= 0) & edge_valid
                 prod_done = take(st["t_done"], prod_e)
                 cross = assigned & (src_e >= 0) & (src_e != aw_e)
@@ -1071,34 +1358,7 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             if use_slots:
                 st = start_flows_frontier(st, keymax)
             st = start_tasks_frontier(st)
-            rates = rates_of(st)
-            if use_slots:
-                active = st["slot_edge"] >= 0
-                rem = st["slot_rem"]
-            else:
-                active = st["f_started"] & ~st["f_done"]
-                rem = st["f_rem"]
-            next_extra = st["pt"].amin(dim=1)      # pending applies
-            if dynamic_sched:
-                now = st["now"]
-                next_extra = torch.minimum(next_extra, torch.where(
-                    st["events"], torch.maximum(now, st["last"] + msd_),
-                    INF))
-            _, now, rem, done_now, t_newly = _advance(st, rates, active, rem,
-                                                      granule, next_extra)
-            # finished tasks all have aw >= 0
-            st["free"] = st["free"] + torch.zeros(
-                R, W, dtype=torch.int64, device=dev).scatter_add_(
-                    1, st["aw"].clamp(min=0), torch.where(t_newly, cpus, 0))
-            if E > 0:
-                st["in_cnt"] = st["in_cnt"] + scatter_count(
-                    T, e_task, take(t_newly, prod_e) & edge_valid)
-            st["now"] = now
-            st["t_done"] = st["t_done"] | t_newly
-            st["events"] = st["events"] | t_newly.any(dim=1)
-            st["steps"] = st["steps"] + 1
-            st["n_events"] = (st["n_events"] + t_newly.sum(dim=1)
-                              + done_now.sum(dim=1))
+            st, rem, done_now = advance(st)
             if use_slots:
                 se = st["slot_edge"]
                 sec = se.clamp(min=0)
@@ -1117,9 +1377,31 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
                                                              done_now)
             return st
 
-        st = _drive(st, body, _live(steps_cap), check_every, graph, dev,
+        def body_edges(st, live):
+            """The per-edge step (``frontier=False``) after ``prologue``
+            (greedy), or all of it."""
+            st = dict(st)
+            if not dynamic_sched:
+                st = apply_due(st)
+            if E > 0:
+                st = start_flows_edges(st)
+            st = start_tasks_edges(st)
+            st, rem, done_now = advance(st)
+            if use_slots:
+                se = st["slot_edge"]
+                st["slot_rem"] = rem
+                st["slot_edge"] = torch.where(done_now, -1, se)
+                st["f_done"] = st["f_done"] | scatter_or(
+                    E, se.clamp(min=0), done_now)
+            else:
+                st["f_rem"] = rem
+                st["f_done"] = st["f_done"] | done_now
+            return st
+
+        st = _drive(st, body if use_frontier else body_edges,
+                    _live(steps_cap, use_frontier), check_every, graph, dev,
                     prologue if dynamic_sched else None)
-        if use_slots:
+        if carried_keys:
             transferred = st["transferred"]
         else:
             transferred = torch.where(st["f_done"], e_bytes, 0.0).sum(dim=1)
@@ -1243,8 +1525,9 @@ class BucketedGridRunner:
     def __init__(self, entries, scheduler, n_workers, cores,
                  netmodel="maxmin", max_steps=None, shape=None,
                  batch=None, est_cache=None, *, device="cuda",
-                 waterfill_impl="auto", flow_rounds=4, frontier_caps=None,
-                 check_every=16, step_graph="auto"):
+                 waterfill_impl="auto", flow_rounds=4, flow_slots=None,
+                 frontier=None, frontier_caps=None, check_every=16,
+                 step_graph="auto"):
         self.device = resolve_device(device)
         if isinstance(entries, dict):
             entries = list(entries.values())
@@ -1281,6 +1564,7 @@ class BucketedGridRunner:
         self.run = make_bucket_dynamic_simulator(
             n_workers, None, scheduler, netmodel, flow_rounds, max_steps,
             max_cores=max(int(clusters.max()), 1),
+            flow_slots=flow_slots, frontier=frontier,
             frontier_caps=frontier_caps, waterfill_impl=waterfill_impl,
             device=self.device, check_every=check_every,
             step_graph=step_graph)

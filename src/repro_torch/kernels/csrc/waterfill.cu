@@ -39,10 +39,12 @@
 //     (A first version took the min in 5 shuffle steps and found the
 //     frozen flows by ballots of per-flow tests; PERF.md has the times of
 //     both.)
-//   * block route (2W > 64 or F > 128, up to max(F, 2W) <= 1024): one
-//     block owns one row and one thread one flow; integer shared-memory
-//     atomicAdds for the counts, a two-level min, block barriers between
-//     the steps of a round.
+//   * block route (2W > 64 or F > 128, up to 2W <= 1024 and any F whose
+//     live bits fit shared memory): one block owns one row, one thread
+//     each resource and ceil(F / blockDim) flows (the per-edge simulator
+//     solves F = E flows: 2016 at the T2048 bucket); integer
+//     shared-memory atomicAdds for the counts, a two-level min, block
+//     barriers between the steps of a round.
 //
 // Bitwise equality with the plain PyTorch version
 // (repro_torch/core/vectorized/waterfill.py) is the target on both
@@ -69,6 +71,9 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxThreads = 1024;
+// the block route's dynamic shared memory without an opt-in: 2W <= 1024
+// takes 16 KB, which leaves room for the live bits of 250k flows
+constexpr size_t kMaxSmem = 48 * 1024;
 // warp route: rows per block, and the largest F and W it takes
 constexpr int kWarpRows = 4;
 constexpr int kWarpMaxSlots = 4;  // flows per lane: F <= 128
@@ -200,9 +205,13 @@ waterfill_warp_kernel(const int32_t* __restrict__ src,
   }
 }
 
-// One block per row, one thread per flow.  Shared memory (dynamic):
-// int count[2W], int used[2W], float cap[2W], int is_bn[2W],
-// float warp_part[32], float min_share.
+// One block per row; thread t owns flows t, t + blockDim, t + 2 blockDim,
+// ... (ceil(F / blockDim) of them), so F has no bound of its own.  Shared
+// memory (dynamic): int count[2W], int used[2W], float cap[2W],
+// int is_bn[2W], float warp_part[32], float min_share, and the live set as
+// bits: word k * blockDim / 32 + warp, bit lane, for flow k * blockDim +
+// tid (one warp writes each word, by ballot, so no atomics).  The flows'
+// worker ids are read again from global memory in each pass (L1 hits).
 __global__ void waterfill_block_kernel(const int32_t* __restrict__ src,
                                        const int32_t* __restrict__ dst,
                                        const uint8_t* __restrict__ active,
@@ -218,42 +227,49 @@ __global__ void waterfill_block_kernel(const int32_t* __restrict__ src,
   int* is_bn = reinterpret_cast<int*>(cap + n_res);
   float* warp_part = reinterpret_cast<float*>(is_bn + n_res);
   float* min_slot = warp_part + 32;
+  unsigned* live_bits = reinterpret_cast<unsigned*>(min_slot + 1);
 
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n_warps = (blockDim.x + 31) >> 5;
+  const int n_warps = blockDim.x >> 5;  // blockDim is a multiple of 32
+  const int passes = (F + blockDim.x - 1) / blockDim.x;
   const long long fbase = static_cast<long long>(row) * F;
   const long long wbase = static_cast<long long>(row) * W;
 
-  // one flow per thread
-  bool act = false;
-  int ru = 0, rd = 0;
-  if (tid < F) {
-    act = active[fbase + tid] != 0;
-    ru = src[fbase + tid];
-    rd = dst[fbase + tid];
-    const bool in_range = ru >= 0 && ru < W && rd >= 0 && rd < W;
-    act = act && in_range;
-    rd += W;
+  // the live flows: active, with both worker ids in range; rates start
+  // at 0 and a flow's rate is written once, when it freezes
+  bool any = false;
+  for (int k = 0; k < passes; ++k) {
+    const int f = k * blockDim.x + tid;
+    bool act = false;
+    if (f < F) {
+      const int u = src[fbase + f];
+      const int v = dst[fbase + f];
+      act = active[fbase + f] != 0 && u >= 0 && u < W && v >= 0 && v < W;
+      rates[fbase + f] = 0.0f;
+    }
+    const unsigned bits = __ballot_sync(kFull, act);
+    if (lane == 0) live_bits[k * n_warps + warp] = bits;
+    any = any || bits != 0u;
   }
-  bool frozen = !act;
-  float rate = 0.0f;
   if (tid < n_res)
     cap[tid] = tid < W ? caps_up[wbase + tid] : caps_down[wbase + tid - W];
 
-  int any_live = __syncthreads_or(act);
+  int any_live = __syncthreads_or(any);
   for (int round = 0; round < max_rounds && any_live; ++round) {
     if (tid < n_res) {
       count[tid] = 0;
       used[tid] = 0;
     }
     __syncthreads();
-    const bool live = act && !frozen;
-    if (live) {
-      atomicAdd(&count[ru], 1);
-      atomicAdd(&count[rd], 1);
+    for (int k = 0; k < passes; ++k) {
+      if ((live_bits[k * n_warps + warp] >> lane) & 1u) {
+        const int f = k * blockDim.x + tid;
+        atomicAdd(&count[src[fbase + f]], 1);
+        atomicAdd(&count[W + dst[fbase + f]], 1);
+      }
     }
     __syncthreads();
 
@@ -273,12 +289,25 @@ __global__ void waterfill_block_kernel(const int32_t* __restrict__ src,
 
     if (tid < n_res) is_bn[tid] = (count[tid] > 0) && (share <= min_share);
     __syncthreads();
-    const bool freeze = live && (is_bn[ru] || is_bn[rd]);
-    if (freeze) {
-      rate = min_share;
-      frozen = true;
-      atomicAdd(&used[ru], 1);
-      atomicAdd(&used[rd], 1);
+    any = false;
+    for (int k = 0; k < passes; ++k) {
+      const unsigned word = live_bits[k * n_warps + warp];
+      bool freeze = false;
+      if ((word >> lane) & 1u) {
+        const int f = k * blockDim.x + tid;
+        const int ru = src[fbase + f];
+        const int rd = W + dst[fbase + f];
+        freeze = is_bn[ru] || is_bn[rd];
+        if (freeze) {
+          rates[fbase + f] = min_share;
+          atomicAdd(&used[ru], 1);
+          atomicAdd(&used[rd], 1);
+        }
+      }
+      // every lane has read the word before the ballot; lane 0 writes it
+      const unsigned left = word & ~__ballot_sync(kFull, freeze);
+      if (lane == 0) live_bits[k * n_warps + warp] = left;
+      any = any || left != 0u;
     }
     __syncthreads();
     if (tid < n_res) {
@@ -286,10 +315,10 @@ __global__ void waterfill_block_kernel(const int32_t* __restrict__ src,
                                    static_cast<float>(used[tid]), cap[tid]);
       cap[tid] = fmaxf(left, 0.0f);
     }
-    // also the barrier that publishes cap before the next round
-    any_live = __syncthreads_or(act && !frozen);
+    // also the barrier that publishes cap and the live set before the
+    // next round
+    any_live = __syncthreads_or(any);
   }
-  if (tid < F) rates[fbase + tid] = rate;
 }
 
 template <int NK>
@@ -308,7 +337,7 @@ void launch_warp(const void* src, const void* dst, const void* active,
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  route 0 is the warp route
-// (F <= 128, W <= 32), route 1 the block route (max(F, 2W) <= 1024).
+// (F <= 128, W <= 32), route 1 the block route (2W <= 1024, any F).
 // Launches on `stream`, allocates nothing, does not synchronise; returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a shape
 // the route does not take.  The caller guarantees R > 0, F > 0, W > 0.
@@ -343,10 +372,16 @@ extern "C" int waterfill_launch(const void* src, const void* dst,
     return static_cast<int>(cudaGetLastError());
   }
   if (route != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int need = F > 2 * W ? F : 2 * W;
-  if (need > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  // one thread per resource; up to one per flow, and no more than a block
+  if (2 * W > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  int need = F > 2 * W ? F : 2 * W;
+  if (need > kMaxThreads) need = kMaxThreads;
   const int threads = ((need + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(2 * W) * 16 + 33 * sizeof(float);
+  const int passes = (F + threads - 1) / threads;
+  const size_t smem = static_cast<size_t>(2 * W) * 16 + 33 * sizeof(float) +
+                      static_cast<size_t>(passes) * (threads / 32) *
+                          sizeof(unsigned);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   waterfill_block_kernel<<<R, threads, smem, st>>>(
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
       static_cast<const uint8_t*>(active),

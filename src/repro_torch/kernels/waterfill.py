@@ -11,8 +11,9 @@ shape alone (``route_for``):
 
 * ``"warp"`` — ``F <= 128`` and ``W <= 32`` (every survey cluster:
   ``F = 4W``): one warp per row, 4 rows per block, no block barrier;
-* ``"block"`` — every other shape up to ``max(F, 2W) <= 1024``: one
-  block per row, one thread per flow.
+* ``"block"`` — every other shape with ``2W <= 1024``: one block per
+  row, one thread per resource and ``ceil(F / blockDim)`` flows per
+  thread, so any ``F`` (the per-edge simulator solves ``F = E``).
 
 The kernels replace the TPU kernel
 ``src/repro/kernels/waterfill.py::_waterfill_kernel`` (Pallas, wrapper
@@ -40,7 +41,7 @@ from ._launch import on_device, raw_stream
 
 ROUTES = ("warp", "block")
 # the warp route's limits: 4 flows per lane, one upload and one download
-# resource per lane
+# resource per lane; the block route's: one thread per resource
 WARP_MAX_F, WARP_MAX_W = 128, 32
 MAX_THREADS = 1024
 
@@ -146,9 +147,9 @@ def _waterfill(src, dst, active, caps_up, caps_down, max_rounds=None,
                               max_rounds)
         return out[0] if unbatched else out
     _check_cuda(src, dst, active, dev)
-    if max(F, 2 * W) > MAX_THREADS:
-        raise ValueError(f"waterfill: max(F, 2W) = {max(F, 2 * W)} exceeds "
-                         f"one block's {MAX_THREADS} threads")
+    if 2 * W > MAX_THREADS:
+        raise ValueError(f"waterfill: 2W = {2 * W} resources exceed one "
+                         f"block's {MAX_THREADS} threads")
     rates = torch.empty((R, F), dtype=torch.float32, device=dev)
     if R == 0 or F == 0:
         return rates[0] if unbatched else rates

@@ -347,6 +347,7 @@ def survey(grid, out_dir=OUT_DIR, device="cuda", agreement=True,
                                 dataset=dataset))
     stats["events_per_s"] = (stats["events"] / stats["wall_s"]
                              if stats["wall_s"] > 0 else 0.0)
+    stats["diagnose"] = _make_diagnose(runners, grid, points)
     agree_rows = []
     stats["agreement_s"] = 0.0
     if agreement:
@@ -375,17 +376,70 @@ def _write_csv(name, rows, out_dir, fieldnames):
     return path
 
 
+def _make_diagnose(runners, grid, points):
+    """A lazy closure over the first retained runner that records one
+    event step of its simulator for bucket member 0 vs 1 (and cluster row
+    0 vs 1) and diffs the op traces — ``repro_torch.analysis
+    .diff_traces``.  Called only when ``check_compiles`` is about to fail,
+    so the AssertionError can name the first divergent op (or blame the
+    Python side when the steps are identical)."""
+    key = (grid["schedulers"][0], grid["netmodels"][0], 0)
+    if key not in runners:
+        return None
+    runner = runners[key][0]
+
+    def diagnose():
+        from .analysis import diff_traces
+        D, S = runner._estimates("exact")
+        dev = runner.device
+        bw = points[0].get("bandwidth", 100 * MiB) if points else 100 * MiB
+
+        def args(b, k):
+            def t(x, dtype):
+                return torch.as_tensor(np.asarray(x), dtype=dtype,
+                                       device=dev)
+            return (runner._bspec_dev.map(lambda x: x[b:b + 1]),
+                    t(D[b:b + 1], torch.float32),
+                    t(S[b:b + 1], torch.float32), t([0.0], torch.float32),
+                    t([0.0], torch.float32), t([bw], torch.float32),
+                    t([0], torch.int64),
+                    t(runner.clusters[k:k + 1], torch.int64))
+
+        parts = []
+        if runner.B > 1:
+            parts.append("graph axis (bucket member 0 vs 1):\n"
+                         + diff_traces(runner.run, args(0, 0), args(1, 0),
+                                       labels=(runner.names[0],
+                                               runner.names[1])))
+        if runner.clusters.shape[0] > 1:
+            parts.append("cluster axis (row 0 vs 1):\n"
+                         + diff_traces(runner.run, args(0, 0), args(0, 1),
+                                       labels=("cluster0", "cluster1")))
+        return "\n".join(parts) if parts else \
+            "single-graph, single-cluster group: nothing to diff"
+
+    return diagnose
+
+
 def check_compiles(stats):
     """The one-program-per-simulator-call contract: every simulator call
     of the grid (one per group, or one per chunk) captured its event
-    step in exactly one CUDA graph."""
+    step in exactly one CUDA graph.  A mismatch names its cause through
+    ``stats["diagnose"]`` (``_make_diagnose``) when the survey left one."""
     if stats["captures"] != stats["sim_calls"] or stats["sim_calls"] < \
             stats["groups"]:
-        raise AssertionError(
-            f"CUDA graph captures {stats['captures']} != simulator calls "
-            f"{stats['sim_calls']} over {stats['groups']} groups "
-            f"(engine {stats['engine']}, device {stats['device']}; the "
-            f"CPU runs every step eagerly and captures nothing)")
+        msg = (f"CUDA graph captures {stats['captures']} != simulator calls "
+               f"{stats['sim_calls']} over {stats['groups']} groups "
+               f"(engine {stats['engine']}, device {stats['device']}; the "
+               f"CPU runs every step eagerly and captures nothing)")
+        diagnose = stats.get("diagnose")
+        if diagnose is not None:
+            try:
+                msg += ("\nrecompile diagnosis (repro_torch.analysis):\n"
+                        + diagnose())
+            except Exception as e:  # diagnosis must never mask the gate
+                msg += f"\n(recompile diagnosis itself failed: {e!r})"
+        raise AssertionError(msg)
 
 
 def _sync(dev):

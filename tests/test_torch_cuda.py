@@ -54,9 +54,15 @@ def test_kernel_counts_launches_and_checks_inputs(dev):
     assert WATERFILL_LAUNCHES.count == before + 1
     with pytest.raises(TypeError, match="int32"):
         waterfill(src.long(), dst, active, caps, caps)
-    with pytest.raises(ValueError, match="exceeds"):
-        big = flow_sets(2, 2, 4, 2048, dev)
-        waterfill(big[0], big[1], big[2], big[3], big[3])
+    # 2W resources must fit one block's threads; F no longer needs to
+    # (the per-edge simulator solves F = E flows)
+    with pytest.raises(ValueError, match="exceed"):
+        wide = flow_sets(2, 2, 513, 8, dev)
+        waterfill(wide[0], wide[1], wide[2], wide[3], wide[3])
+    big = flow_sets(2, 2, 4, 2048, dev)
+    got = waterfill(big[0], big[1], big[2], big[3], big[3])
+    torch.cuda.synchronize()
+    assert torch.equal(got, waterfill_plain_of(*big))
 
 
 def waterfill_case(name, W, device):
@@ -139,6 +145,26 @@ def test_waterfill_block_route_at_w64_f256(dev):
         assert torch.equal(got, want)
     with pytest.raises(ValueError, match="warp route"):
         wk._waterfill(src, dst, active, caps, caps, route="warp")
+
+
+@pytest.mark.parametrize("F", [992, 1024, 1025, 2016])
+def test_waterfill_block_route_past_one_block_of_flows(dev, F):
+    """The per-edge simulator's solve: F = E flows per row (992 at the
+    T512 bucket, 2016 at T2048), more than one block's threads."""
+    from repro_torch.kernels import waterfill as wk
+    src, dst, active, caps = flow_sets(F, 96, 32, F, dev)
+    assert wk.route_for(F, 32) == "block"
+    for max_rounds in (None, 3):
+        got = wk._waterfill(src, dst, active, caps, caps, max_rounds)
+        want = waterfill_plain_of(src, dst, active, caps, max_rounds)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    s2, d2, a2, c2, _ = waterfill_case("ids_out_of_range", 32, dev)
+    reps = -(-F // s2.shape[1])
+    s2, d2, a2 = (x.repeat(1, reps)[:, :F].contiguous() for x in (s2, d2, a2))
+    got = wk._waterfill(s2, d2, a2, c2, c2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, waterfill_plain_of(s2, d2, a2, c2))
 
 
 @pytest.mark.parametrize("F,W,route", [(128, 32, "warp"), (20, 5, "warp"),

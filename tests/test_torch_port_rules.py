@@ -142,6 +142,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         make_grid_runner([(g, spec)], "blevel", 2, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_bucket_dynamic_simulator(2, 4)
+    # simlint: the step checks default to the card; the source rules
+    # alone need none
+    from repro_torch.analysis import check_all
+    from repro_torch.analysis.__main__ import main as simlint
+    with pytest.raises(RuntimeError, match="CUDA"):
+        check_all()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simlint(["--no-ast"])
+    assert simlint(["--no-jaxpr"]) == 0
 
 
 def test_survey_cli_raises_without_a_card():
@@ -260,14 +269,42 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_options_not_ported_raise():
+    """The per-edge escape hatches are ported: ``build`` and
+    ``make_grid_runner`` take ``flow_slots=False`` and ``frontier=False``
+    and give the reference's results; the reference's own error (frontier
+    on without slots on the dynamic max-min path) and the option checks
+    still raise."""
+    import jax
+    from repro.core.vectorized import api as japi
+    from repro.core.vectorized.specs import BucketedGraphSpec as JSpec
     from repro_torch.core.graphs import random_graph
+    from repro_torch.core.imodes import encode_imode
     from repro_torch.core.vectorized import build, make_grid_runner
-    from repro_torch.core.vectorized.specs import encode_graph
+    from repro_torch.core.vectorized.specs import as_bucketed, encode_graph
     g = random_graph(2, n_tasks=8)
     spec = encode_graph(g)
+    d, s = encode_imode(g, "exact")
     kw = dict(n_workers=2, cores=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="escape hatch"):
-        build(spec, flow_slots=False, **kw)
+    jspec = JSpec(**as_bucketed(spec).numpy())
+    for opt in (dict(flow_slots=False), dict(frontier=False)):
+        got = build(spec, scheduler="blevel", dynamic=True, **opt, **kw)(
+            d, s, bandwidth=np.float32(64 * 1024 * 1024))
+        want = jax.jit(japi.build(jspec, n_workers=2, cores=4,
+                                  scheduler="blevel", dynamic=True, **opt))(
+            d, s, bandwidth=np.float32(64 * 1024 * 1024))
+        for f in ("ok", "overflow", "n_events", "n_steps"):
+            assert np.array_equal(getattr(got, f).numpy(),
+                                  np.asarray(getattr(want, f))), (opt, f)
+        for f in ("makespan", "transferred"):
+            np.testing.assert_allclose(getattr(got, f).numpy(),
+                                       np.asarray(getattr(want, f)),
+                                       rtol=1e-5, err_msg=str(opt))
+        res = make_grid_runner([(g, spec)], "blevel", 2, 4, device="cpu",
+                               **opt)([dict(bandwidth=64 * 1024 * 1024)])
+        assert res.makespan[0, 0, 0] == got.makespan.item(), opt
+    with pytest.raises(ValueError, match="frontier=True requires"):
+        build(spec, scheduler="blevel", dynamic=True, flow_slots=False,
+              frontier=True, **kw)
     # the engine block is ported: it resolves, and the sharded runner
     # streams rows on one card
     from repro_torch.core.vectorized import (BucketedGridRunner,
@@ -279,8 +316,6 @@ def test_options_not_ported_raise():
                       ShardedGridRunner)
     assert type(make_grid_runner([(g, spec)], "blevel", 2, 4, device="cpu",
                                  stream_rows=8)) is BucketedGridRunner
-    with pytest.raises(NotImplementedError, match="escape hatch"):
-        build(spec, scheduler="blevel", dynamic=True, frontier=False, **kw)
     with pytest.raises(TypeError, match="unknown option"):
         build(spec, scheduler="blevel", dynamic=True, no_such_option=1,
               **kw)

@@ -247,10 +247,17 @@ def test_unbatched_call_and_bindings_equal_batched_rows():
 
 
 def test_static_simulator_rejects_the_per_edge_escape_hatches():
+    """The per-edge escape hatches are ported: ``flow_slots=False`` and
+    ``frontier=False`` (and both) run and equal the reference's static
+    simulator with the same flags, makespans bitwise."""
     spec = encode_graph(make_graph("crossv", seed=0))
-    for opt in (dict(flow_slots=False), dict(frontier=False)):
-        with pytest.raises(NotImplementedError):
-            build(spec, n_workers=8, cores=4, device="cpu", **opt)
+    A, P = rows(5, 3, spec.T, 8)
+    for opt in (dict(flow_slots=False), dict(frontier=False),
+                dict(flow_slots=False, frontier=False)):
+        got = build(spec, n_workers=8, cores=4, device="cpu", **opt)(
+            A, P, bandwidth=BW)
+        assert_agree(got, reference(spec, A, P, 8, 4, "maxmin", **opt),
+                     opt)
 
 
 SCHEDULER_BINDINGS = ["make_static_blevel_scheduler",

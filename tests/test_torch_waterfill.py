@@ -165,10 +165,22 @@ def test_forced_route_runs_the_plain_version_for_cpu_tensors(route):
     assert torch.equal(got, waterfill(src, dst, active, caps, caps, 3))
 
 
+@pytest.mark.parametrize("F", [992, 2016])
+def test_plain_version_at_the_per_edge_flow_counts(F):
+    """F = E flows per row (the per-edge simulator's solve at the T512 and
+    T2048 buckets), past one block of the kernel's threads."""
+    src, dst, active, caps = flow_sets(F, 4, 32, F)
+    want = reference(src, dst, active, caps)
+    got = port(src, dst, active, caps)
+    assert_same(got, want)
+    assert np.array_equal(got, want)
+    assert wk.route_for(F, 32) == "block"
+
+
 @pytest.mark.parametrize("F,W,route", [
     (128, 32, "warp"), (129, 32, "block"), (128, 33, "block"),
     (129, 33, "block"), (4, 1, "warp"), (1, 1, "warp"), (100, 20, "warp"),
-    (256, 64, "block"), (1024, 512, "block")])
+    (256, 64, "block"), (1024, 512, "block"), (2016, 32, "block")])
 def test_route_is_picked_by_shape(F, W, route):
     assert wk.route_for(F, W) == route
 
