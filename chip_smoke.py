@@ -81,14 +81,29 @@ printing one JSON line:
    ``sharded``).  Prints events/s and wall ms per loop step of each,
    and the device busy and idle share of one more blevel graph run
    under the profiler.
-10. ``static_golden``: the static simulator against the reference's
+10. ``survey_ranks``: the grid engine over two ranks, both on the one
+   card (``cuda:0``), in a gloo group over localhost (the port's test
+   arrangement; NCCL across physical cards stays unchecked here): (a)
+   the same T512 x 32x4 group, blevel and greedy, through
+   ``ShardedGridRunner(devices=2, stream_rows=32)`` in two processes
+   (3 chunks of 32 rows, 16 a rank), against this process's one-card
+   sharded run of the group: both ranks' gathered results bitwise in
+   every field, one capture per chunk on each rank, each rank's K1
+   launches all ``warp`` and one per loop step; each rank's wall time
+   and events/s (time-sliced on one card: no multi-card speed); (b)
+   ``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+   repro_torch.survey --mini --no-agreement --engine sharded --devices 2
+   --assert-compiles`` beside a one-card ``--devices 1`` run of the
+   same command: both gates pass and the CSVs are equal.  A rank that
+   fails or outlives 300 s ends the others and the phase.
+11. ``static_golden``: the static simulator against the reference's
    recorded ``BENCH_PR7.json`` static rows (merge_triplets at 8x4,
    t2048_layered at 16x4): each graph scheduled by the port's
    ``build(..., scheduler="blevel")`` from exact estimates, padded to
    its bucket and simulated by ``build(...)`` with no scheduler through
    K1; events, steps and makespan exactly, ``transferred`` within rtol
    1e-5.
-11. ``static_full_width``: the T512 bucket on 32x4 (W 32, 128 flow
+12. ``static_full_width``: the T512 bucket on 32x4 (W 32, 128 flow
     slots) through the static simulator: each graph x the five static
     schedules (placed on the card) x 100 and 512 MiB/s, 40 rows in one
     call with full-coverage frontier caps, through the plain waterfill
@@ -98,14 +113,14 @@ printing one JSON line:
     makespan exactly the values the reference package recorded on a
     CPU (``STATIC_FULL_WIDTH``, ``tools/record_static_reference.py``);
     events/s of each, and one more kernel run under the profiler.
-12. ``genetic_vec``: the reference event loop on fastcrossv at 32x4 with
+13. ``genetic_vec``: the reference event loop on fastcrossv at 32x4 with
     the port's ``make_scheduler("genetic-vec", seed=0)`` at its defaults
     (population 32, 16 generations: 17 batched calls of 32 rows through
     K1): makespan and every task's worker equal to the reference's
     recorded run (``GENETIC_VEC``); then 2 generations on the plain
     waterfill and on K1, both equal to the reference's 2-generation
     run; wall time per generation.
-13. ``kernel_flash_attention``: K2 against its plain version on the card
+14. ``kernel_flash_attention``: K2 against its plain version on the card
    (float32 and bfloat16) at Hymba's prefill shape (B 4, Hq 25, Hkv 5,
    Sq 1536, Skv 1568, kv_len 1536, window 1024 and 0, the KV cache's
    strided layout), its decode shape (Sq 1), ``train_hymba``'s shape
@@ -140,7 +155,7 @@ printing one JSON line:
    (``eager_ms``, ``library_eager_ms``).  Hymba's six cases, the
    four D 128/160 cases, the served families' and the three training
    shapes are timed.
-14. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
+15. ``kernel_ssd``: K3's three kernels (``ssd_chunk_state``,
     ``ssd_state_pass``, ``ssd_chunk_scan``) each alone against its plain
     piece (``ref.ssd_chunk_states``, ``ssd_pass_states``,
     ``ssd_chunk_scan``), and the whole call against ``ssd_chunked`` and
@@ -151,7 +166,7 @@ printing one JSON line:
     overflows above the diagonal, Q/P/N off a multiple of 4, the smoke
     serve's L 8); fails above atol/rtol 1e-4.  Times the call and each
     phase alone with CUDA events around eager calls.
-15. ``serve_hymba``: ``repro_torch.launch.serve`` at full width in
+16. ``serve_hymba``: ``repro_torch.launch.serve`` at full width in
     bfloat16 (batch 4, prompt 1536, gen 32) through the kernels, with the
     launches of K2 (32 layers x 33 forward passes) and K3 (32); then the
     same prompt in float32, prefill and 4 teacher-forced decode steps,
@@ -160,7 +175,7 @@ printing one JSON line:
     are also counted by route (bf16: ``tc`` at prefill, ``split`` at
     decode; float32: ``f32``), and the prefill profile gives K2's and
     K3's device time and share.
-16. ``train_hymba``: training Hymba-1.5B.  First a gradient check:
+17. ``train_hymba``: training Hymba-1.5B.  First a gradient check:
     ``get_config("hymba-1.5b")`` at full width in float32 cut to 4
     layers (layer 0 global, 1-3 a window of 1024), batch 2, seq 2048,
     one ``make_train_step`` through the kernels and one through the
@@ -177,7 +192,7 @@ printing one JSON line:
     launches a microbatch.  Prints ms/step (first and warm), tokens/s,
     model TFLOP/s, peak memory and the seconds of each checkpoint save
     and restore.
-17. ``serve_dense``: ``launch.serve.serve`` (bf16, through the kernels)
+18. ``serve_dense``: ``launch.serve.serve`` (bf16, through the kernels)
     of chatglm3-6b (28 layers), stablelm-12b (40) and qwen3-32b (64)
     whole, batch 4, prompt 1536, 16 generated tokens: a cold run (the
     main path, K2 counted: ``tc`` once a layer, ``split`` once a layer
@@ -195,7 +210,7 @@ printing one JSON line:
     with both caches); and qwen3's int8 cache within the reference's own
     bound of the float32 cache at the reference check's depth and type
     (2 layers, float32: 0.05 x the logits' scale).
-18. ``serve_moe``: mixtral-8x22b and llama4-scout at full width cut to 8
+19. ``serve_moe``: mixtral-8x22b and llama4-scout at full width cut to 8
     layers (the whole models are 281 and 204 GB; one card), served as
     above (dense dispatch); on the mixtral weights the gather and dense
     dispatches in turns (gather, gather, dense), then the ring KV cache:
@@ -211,14 +226,14 @@ printing one JSON line:
     in float32 on 2 layers: within 5e-4 x the logits' scale of the
     full-length cache (the reference's own bound), greedy tokens
     equal.
-19. ``serve_vision``: llama-3.2-vision-11b whole (32 self and 8 cross
+20. ``serve_vision``: llama-3.2-vision-11b whole (32 self and 8 cross
     layers) over the vision stub's 1600 encoder states, served as above;
     then one 2048-token prompt (longer than the vision tokens, every
     gate 0.5); the float32 check on one group of 5 layers with every
     gate 0.5.
-20. ``serve_audio``: musicgen-large whole (48 layers, [B, S, 4] codebook
+21. ``serve_audio``: musicgen-large whole (48 layers, [B, S, 4] codebook
     prompts, [B, 16, 4] tokens), served as above; the float32 check.
-21. ``train_audio``: training musicgen-large.  First a gradient check
+22. ``train_audio``: training musicgen-large.  First a gradient check
     as ``train_hymba``'s: the config in float32 at full width cut to 2
     layers, batch 2 x 512 ([B, S, 4] codebook tokens), one
     ``make_train_step`` through the kernels and one through the plain
@@ -232,14 +247,14 @@ printing one JSON line:
     parameters x tokens) and its share of the H100's bf16 peak, peak
     memory, the parameters as built; then one more warm step under the
     profiler.
-22. ``train_vision``: llama-3.2-vision-11b likewise: the gradient check
+23. ``train_vision``: llama-3.2-vision-11b likewise: the gradient check
     on one group of 5 layers (4 self + 1 cross, every cross gate 0.5
     before either path runs: at the initial gate of 0 the
     cross-attention weights take no gradient) over 1600 vision tokens;
     the bf16 run on 10 layers (8 self + 2 cross, 2.88 B parameters as
     built; the whole model with AdamW is some 120 GB), ``launch.train
     --layers 10``.
-23. ``train_moe``: mixtral-8x22b likewise: the gradient check at 1 layer
+24. ``train_moe``: mixtral-8x22b likewise: the gradient check at 1 layer
     with the dense dispatch, dense with ``moe_fold_gates`` and gather on
     one set of weights (the router's choices logged on both paths; where
     one flips, the plain path runs again pinned to the kernel path's
@@ -249,7 +264,7 @@ printing one JSON line:
     gather, fold, dense, dense, fold, gather in turns on its weights.
     The three phases print their wall seconds and their total on the
     ``kernels`` line.
-24. ``mesh``: the port's mesh and placements on the card.  (a) A real
+25. ``mesh``: the port's mesh and placements on the card.  (a) A real
     one-rank NCCL group and a ``(1, 1)`` ``("data", "model")`` mesh:
     hymba-1.5b served at full width (32 layers, bf16, batch 4, prompt
     1536, 8 greedy tokens) with its parameters and caches placed by
@@ -272,7 +287,7 @@ printing one JSON line:
     on the CPU while (a) and (b) run): hymba-1.5b ``train_4k`` single,
     mixtral-8x22b ``decode_32k`` multi (and the mixtral cells that (b)
     compares with), each record's key numbers and ``trace_s``.
-25. ``escape_hatches``: the simulators' per-edge escape hatches
+26. ``escape_hatches``: the simulators' per-edge escape hatches
     (``flow_slots=False``: one max-min flow per input edge, K1 at F = E;
     ``frontier=False``: every edge and task scanned per event).  The
     golden rows per hatch, in turns with the default path (default,
@@ -284,11 +299,11 @@ printing one JSON line:
     steps and events bitwise, transferred within 1e-5.  Every simulator
     call captures one CUDA graph; K1's launches on the hatch runs count
     toward its main path.
-26. ``simlint``: ``repro_torch.analysis`` on the card: the source rules
+27. ``simlint``: ``repro_torch.analysis`` on the card: the source rules
     over the port and the step checks of the 27 targets
     (``check_all(device="cuda")``): no active finding and no host read
     inside any step; the counts per rule.
-27. ``kernels``: each kernel with its launches on the main paths (K1's
+28. ``kernels``: each kernel with its launches on the main paths (K1's
     summed over its path phases and ``escape_hatches``, K2's over
     ``serve_hymba``,
     ``train_hymba``, the four serve family phases, the three train
@@ -325,7 +340,8 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 PHASES = ("env", "build", "kernel_waterfill", "golden", "survey_mini",
           "survey_agreement", "survey_dataset", "survey_full_width",
-          "survey_engine", "static_golden", "static_full_width", "genetic_vec",
+          "survey_engine", "survey_ranks", "static_golden",
+          "static_full_width", "genetic_vec",
           "kernel_flash_attention", "kernel_ssd", "serve_hymba",
           "train_hymba", "serve_dense", "serve_moe", "serve_vision",
           "serve_audio", "train_audio", "train_vision", "train_moe",
@@ -1487,6 +1503,208 @@ def phase_survey_engine(schedulers=("blevel", "greedy"), stream_rows=32):
     emit("survey_engine", rows=out, ok=True, card=CARD,
          waterfill_launches=k1[0], waterfill_launch_routes=k1[1])
     return k1[0], k1[1]
+
+
+# ------------------------------------------- the grid engine over ranks
+RANKS = 2
+RANKS_TIMEOUT_S = 300
+# one rank of survey_ranks (a): the survey_full_width group through
+# ShardedGridRunner(devices=2) in a gloo group over localhost
+RANK_CHILD = """
+import json, os, sys, time
+from datetime import timedelta
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+rank, port, out = int(os.environ["RANK"]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=cs.RANKS,
+                        timeout=timedelta(seconds=cs.RANKS_TIMEOUT_S))
+from repro_torch.core.vectorized import capture_counter
+from repro_torch.kernels import WATERFILL_LAUNCHES
+points = cs._full_width_group()[3]
+rec = {}
+for sched in sys.argv[4].split(","):
+    runner = cs._full_width_runner(sched, "auto", engine="sharded",
+                                   devices=cs.RANKS, stream_rows=32)
+    WATERFILL_LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with capture_counter() as cc:
+        res = runner(points)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    np.savez(os.path.join(out, f"{sched}_rank{rank}.npz"), **res._asdict())
+    rec[sched] = dict(
+        rank=rank, device=str(runner.device), n_devices=runner.n_devices,
+        chunks=runner._row_chunks(int(res.ok.size)), wall_s=wall,
+        events=int(res.n_events.sum()), calls=cc.calls,
+        captures=cc.captures, replays=cc.replays,
+        k1_launches=WATERFILL_LAUNCHES.count,
+        k1_routes=dict(WATERFILL_LAUNCHES.routes))
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(rec, f)
+dist.destroy_process_group()
+"""
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _wait_all(procs, what, timeout=RANKS_TIMEOUT_S):
+    """Wait for every process of ``procs`` (``{name: Popen}``, output to
+    a pipe); the first that fails or the deadline kills the rest and
+    raises.  Returns ``{name: output}``."""
+    deadline = time.perf_counter() + timeout
+    try:
+        while any(p.poll() is None for p in procs.values()):
+            failed = [n for n, p in procs.items()
+                      if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    logs = {n: p.communicate()[0] for n, p in procs.items()}
+    bad = {n: (p.returncode, logs[n][-3000:]) for n, p in procs.items()
+           if p.returncode != 0}
+    if bad:
+        raise AssertionError(f"{what}: failed or timed out: {bad}")
+    return logs
+
+
+def _rank_env(**extra):
+    return dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+                OMP_NUM_THREADS="1", **extra)
+
+
+def _survey_cli(out_dir, ranks):
+    """``repro_torch.survey --mini --no-agreement --engine sharded
+    --assert-compiles`` into ``out_dir``: under ``torch.distributed.run``
+    with ``ranks`` ranks above 1, else one process."""
+    args = ["-m", "repro_torch.survey", "--mini", "--no-agreement",
+            "--engine", "sharded", "--devices", str(ranks),
+            "--assert-compiles", "--out", out_dir]
+    if ranks > 1:
+        args = ["-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(ranks), *args]
+    return subprocess.Popen([sys.executable, *args], env=_rank_env(),
+                            cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _read_csv(path):
+    import csv
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def phase_survey_ranks(schedulers=("blevel", "greedy"), stream_rows=32):
+    """The grid engine over two ranks sharing the one card: (a) the
+    survey_full_width group through ``ShardedGridRunner(devices=2,
+    stream_rows=32)`` in two processes of a gloo group, each on
+    ``cuda:0``, against this process's one-card sharded run of the same
+    group: every field bitwise on both ranks, one capture per chunk on
+    each rank, every K1 launch ``warp`` and as many as the rank's loop
+    steps; (b) the mini survey's CLI under ``torch.distributed.run``
+    with two ranks (``--assert-compiles``) against a one-card run of the
+    same command: equal CSVs.  Each rank's wall time and events/s are
+    printed; two ranks time-slice one card, so they are no multi-card
+    speed.  Returns K1's launches of (a) on both ranks, by route."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    t0 = time.perf_counter()
+    _, grp, _, points = _full_width_group()
+    one = {sched: _full_width_runner(sched, "auto", engine="sharded",
+                                     devices=1, stream_rows=stream_rows)(
+        points) for sched in schedulers}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="survey_ranks_",
+                           dir=os.path.join(HERE, "build"))
+    try:
+        port = _free_port()
+        procs = {r: subprocess.Popen(
+            [sys.executable, "-c", RANK_CHILD, HERE, str(port), tmp,
+             ",".join(schedulers)],
+            env=_rank_env(RANK=str(r), LOCAL_RANK=str(r),
+                          WORLD_SIZE=str(RANKS)),
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(RANKS)}
+        _wait_all(procs, "survey_ranks (a)")
+        recs = []
+        for r in range(RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        k1, routes, out, good = 0, {}, [], True
+        for sched in schedulers:
+            ref = one[sched]
+            rows = int(ref.ok.size)
+            for r in range(RANKS):
+                rec = recs[r][sched]
+                got = np.load(os.path.join(tmp, f"{sched}_rank{r}.npz"))
+                rec["bitwise"] = all(np.array_equal(got[f], getattr(ref, f),
+                                                    equal_nan=True)
+                                     for f in ref._fields)
+                rec["events_per_s"] = rec["events"] / rec["wall_s"]
+                chunks = rec["chunks"][1] // rec["chunks"][0]
+                steps = rec["calls"] + rec["replays"]
+                rec["ok"] = (rec["bitwise"] and bool(ref.ok.all())
+                             and rec["n_devices"] == RANKS
+                             and rec["device"] == "cuda:0"
+                             and rec["calls"] == rec["captures"] == chunks
+                             and chunks == -(-rows // stream_rows)
+                             and rec["k1_launches"] == steps > 0
+                             and rec["k1_routes"].get("warp", 0)
+                             == rec["k1_launches"])
+                good &= rec["ok"]
+                emit("survey_ranks_rank", scheduler=sched, bucket=grp.label,
+                     cluster="32x4", rows=rows, **rec, card=CARD)
+                k1 += rec["k1_launches"]
+                for rt, n in rec["k1_routes"].items():
+                    routes[rt] = routes.get(rt, 0) + n
+                out.append(dict(scheduler=sched, **{
+                    k: rec[k] for k in ("rank", "wall_s", "events_per_s",
+                                        "captures", "k1_launches",
+                                        "bitwise", "ok")}))
+        if not good:
+            emit("survey_ranks", rows=out, ok=False)
+            raise AssertionError(f"survey_ranks: two ranks differ from the "
+                                 f"one-card run: {out}")
+        # (b) the survey's CLI, two ranks and one card at once
+        cli = {n: os.path.join(tmp, f"cli{n}") for n in (RANKS, 1)}
+        logs = _wait_all({n: _survey_cli(d, n) for n, d in cli.items()},
+                         "survey_ranks (b)")
+        passed = [line for line in logs[RANKS].splitlines()
+                  if line.startswith("# compile-count assertion passed")]
+        two_csv = _read_csv(os.path.join(cli[RANKS], "survey_torch.csv"))
+        one_csv = _read_csv(os.path.join(cli[1], "survey_torch.csv"))
+        cli_rec = dict(rows=len(two_csv), equal_csv=two_csv == one_csv,
+                       assertions_passed=passed)
+        if not (cli_rec["equal_csv"] and len(passed) == RANKS and two_csv):
+            emit("survey_ranks", rows=out, cli=cli_rec, ok=False)
+            raise AssertionError(f"survey_ranks: the two-rank survey CLI "
+                                 f"differs from one card: {cli_rec}\n"
+                                 f"{logs[RANKS][-3000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("survey_ranks", rows=out, cli=cli_rec, ranks=RANKS,
+         shared_card="cuda:0",
+         speed_note="both ranks time-slice one card: their walls and "
+                    "events/s are not a multi-card speed",
+         nccl_across_cards="not checked: one card", card=CARD, ok=True,
+         waterfill_launches=k1, waterfill_launch_routes=routes,
+         seconds=time.perf_counter() - t0)
+    return k1, routes
 
 
 # ------------------------------------------- the static simulator, genetic-vec
@@ -3794,6 +4012,8 @@ def main(argv=None):
         k1.append((main_path["count"], main_path["routes"]))
     if "survey_engine" in phases:
         k1.append(phase_survey_engine())
+    if "survey_ranks" in phases:
+        k1.append(phase_survey_ranks())
     if "static_golden" in phases:
         k1.append(phase_static_golden())
     if "static_full_width" in phases:

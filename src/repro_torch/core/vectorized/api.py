@@ -22,9 +22,10 @@ per simulation — in place of the reference's ``jax.vmap``.
 The engine block rides ``SimConfig`` as in the reference, and only
 ``make_grid_runner`` dispatches on it: ``engine="sharded"`` streams the
 grid's rows in chunks of ``stream_rows`` through ``engine.
-ShardedGridRunner`` on one card (``devices`` above 1 raises).
-``cache_dir`` has no counterpart here and raises (``engine.py`` says
-why).
+ShardedGridRunner``, split over ``devices`` ranks of a started
+``torch.distributed`` group (one card each; ``torchrun --nproc-per-node
+n``) or over a given ``mesh``.  ``cache_dir`` has no counterpart here
+and raises (``engine.py`` says why).
 """
 from __future__ import annotations
 
@@ -49,8 +50,10 @@ class SimConfig:
     graph on the card, eager on the CPU), ``"graph"`` (raises on the
     CPU) or ``"eager"``.  The engine block: ``engine`` is ``"vmap"``
     (one batched call) or ``"sharded"`` (``stream_rows`` rows a call,
-    streamed through a double-buffered queue onto ``devices`` cards:
-    one, the only count ported); ``cache_dir`` raises."""
+    streamed through a double-buffered queue and split over ``devices``
+    ranks of the started process group, one card each: ``None`` is the
+    whole group, or one card when none is started; ``engine.grid_mesh``);
+    ``cache_dir`` raises."""
 
     flow_slots: bool | None = None
     frontier: bool | None = None
@@ -173,7 +176,7 @@ def make_grid_runner(entries, scheduler, n_workers, cores, *,
                      netmodel: str = "maxmin", max_steps: int | None = None,
                      shape=None, batch=None, est_cache=None,
                      config: SimConfig | None = None, device="cuda",
-                     **opts):
+                     mesh=None, **opts):
     """Engine-dispatching front door over the bucket grid runners:
     positional arguments match ``BucketedGridRunner``; options ride the
     same config/override mechanics as ``build``::
@@ -185,7 +188,8 @@ def make_grid_runner(entries, scheduler, n_workers, cores, *,
     ``engine="vmap"`` (default) returns a ``BucketedGridRunner`` (one
     simulator call over all ``[K, B, N]`` rows); ``engine="sharded"`` a
     ``ShardedGridRunner`` (one call per chunk of ``stream_rows`` rows,
-    the same results bit for bit)."""
+    the same results bit for bit), over ``devices`` ranks or ``mesh``'s
+    ``"grid"`` dim."""
     dev = resolve_device(device)
     cfg = _merge_config(config, opts)
     kwargs = dict(
@@ -201,7 +205,7 @@ def make_grid_runner(entries, scheduler, n_workers, cores, *,
                                        **kwargs)
     from .engine import ShardedGridRunner
     return ShardedGridRunner(entries, scheduler, n_workers, cores,
-                             devices=cfg.devices,
+                             mesh=mesh, devices=cfg.devices,
                              stream_rows=cfg.stream_rows, **kwargs)
 
 

@@ -11,9 +11,19 @@ must exist and be at least that large: on one machine the dry run
 (``launch/dryrun.py``) starts a fake group of 256 or 512 ranks first.
 Functions, not module constants: importing this module starts no process
 group and touches no device.
+
+The survey's grid engine gathers its results on the host: each rank's
+share of a grid is a few KB, and two ranks of the port's test
+arrangement share one card, which NCCL refuses ("Duplicate GPU
+detected").  So ``grid_host_group`` gives the engine a gloo group over
+the grid mesh's ranks, whatever the default group's backend, made once
+per set of ranks and cached, with a finite timeout (``GRID_TIMEOUT``):
+a rank that fails leaves the others waiting that long at most.  No
+NCCL communicator is made on that path.
 """
 from __future__ import annotations
 
+import datetime
 import math
 
 import torch
@@ -64,6 +74,35 @@ def make_grid_mesh(n: int | None = None,
                            "first")
     return _mesh((n,), ("grid",), device_type,
                  f"start a group of {n} ranks first")
+
+
+# how long a rank of the grid engine waits for the others in a collective
+GRID_TIMEOUT = datetime.timedelta(minutes=10)
+
+_HOST_GROUPS: dict = {}
+
+
+def grid_ranks(mesh: DeviceMesh) -> list[int]:
+    """The global ranks along ``mesh``'s ``"grid"`` dim through this
+    rank, in grid order."""
+    grid = mesh if mesh.ndim == 1 else mesh["grid"]
+    return [int(r) for r in grid.mesh.flatten().tolist()]
+
+
+def grid_host_group(mesh: DeviceMesh):
+    """A gloo group over ``grid_ranks(mesh)``, made once per set of ranks
+    (of the current default group) and cached.  Only those ranks call
+    ``new_group`` (local synchronisation), so a rank outside the grid
+    need not."""
+    ranks = tuple(grid_ranks(mesh))
+    key = (dist.group.WORLD, ranks)
+    group = _HOST_GROUPS.get(key)
+    if group is None:
+        group = dist.new_group(list(ranks), timeout=GRID_TIMEOUT,
+                               backend="gloo",
+                               use_local_synchronization=True)
+        _HOST_GROUPS[key] = group
+    return group
 
 
 def dp_axes(mesh: DeviceMesh):

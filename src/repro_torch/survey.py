@@ -38,7 +38,13 @@ fails there).  The ``compile_count`` column holds the captures of a
 bucket row's first call (B for ``__pergraph_path__``) and
 ``total_compiles`` the captures of the whole grid.  ``--engine
 sharded`` streams each group's rows in chunks of ``--stream-rows``
-(``ShardedGridRunner``; ``--devices`` is 1, the one card).
+(``ShardedGridRunner``); with ``--devices n`` above 1, under ``torchrun
+--nproc-per-node n``, each group's rows are split over the n ranks, one
+card each (``main`` starts a gloo group from torchrun's environment).
+Every rank walks the same groups in the same order and holds the whole
+result; rank 0 alone writes the CSVs and runs the reference twins and
+per-graph runners of the agreement pass, while the others wait, and
+``--assert-compiles`` gates every rank's own captures.
 
 CLI (runs on the CUDA card unless told otherwise)::
 
@@ -48,6 +54,8 @@ CLI (runs on the CUDA card unless told otherwise)::
     PYTHONPATH=src python -m repro_torch.survey --full --no-agreement
     PYTHONPATH=src python -m repro_torch.survey --mini --engine sharded \
         --stream-rows 32 --assert-compiles
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.survey \
+        --mini --engine sharded --devices 2 --assert-compiles
 """
 from __future__ import annotations
 
@@ -60,13 +68,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .core import (MiB, Simulator, make_scheduler, parse_cluster,
                    resolve_workers, w_bucket)
 from .core.graphs import encode_graph_batch, make_graph, survey_names
 from .core.vectorized import (DynamicGridRunner, capture_counter,
                                make_grid_runner)
-from .device import resolve_device
+from .core.vectorized.engine import grid_mesh, rank_device
+from .launch.mesh import GRID_TIMEOUT, grid_host_group
 
 SCHEMA = ("graph_name", "cluster_name", "bandwidth", "netmodel",
           "scheduler_name", "imode", "min_sched_interval", "time",
@@ -210,7 +220,8 @@ def time_reference_twin(graph_name, scheduler, workers, cores, points,
     return reps, wall / len(points) * 1e6
 
 
-def agreement_pass(grid, points, encoded, groups, runners, stats, dev):
+def agreement_pass(grid, points, encoded, groups, runners, stats, dev,
+                   lead=True):
     """Agreement/speedup rows for the first (cluster group, netmodel):
     per (graph, first cluster) the bucketed makespan at the first point
     against the reference twin on the unpadded cluster, per group the
@@ -220,20 +231,30 @@ def agreement_pass(grid, points, encoded, groups, runners, stats, dev):
     per-graph runners keep the spec-derived frontier caps of the
     reference; no grid of this module overflows them there (the first
     cluster group's W is 8).  Every clock read follows a device
-    synchronisation."""
+    synchronisation.  The warm group runs are the grid runners' calls,
+    which every rank of a split grid joins; the rest runs on the
+    ``lead`` rank alone, and the others return no rows."""
     netmodel = grid["netmodels"][0]
+    warm = {}
+    for sched in grid["schedulers"]:
+        for gi in range(len(groups)):
+            runner, _, cnames, _ = runners[(sched, netmodel, gi)]
+            _sync(dev)
+            t0 = time.perf_counter()
+            res = runner(points)                 # warm, steady state
+            _sync(dev)
+            n_sims = len(cnames) * runner.B * len(points)
+            warm[(sched, gi)] = (res, (time.perf_counter() - t0)
+                                 / n_sims * 1e6)
+    if not lead:
+        return []
     agree_rows = []
     for sched in grid["schedulers"]:
         for gi, grp in enumerate(groups):
             runner, _, cnames, captures = runners[(sched, netmodel, gi)]
             cname = cnames[0]
             cores = parse_cluster(cname)
-            _sync(dev)
-            t0 = time.perf_counter()
-            res = runner(points)                 # warm, steady state
-            _sync(dev)
-            n_sims = len(cnames) * runner.B * len(points)
-            vec_us = (time.perf_counter() - t0) / n_sims * 1e6
+            res, vec_us = warm[(sched, gi)]
             for b, gname in enumerate(grp.names):
                 reps, ref_us = time_reference_twin(
                     gname, sched, len(cores), cores, points[:1],
@@ -291,8 +312,16 @@ def survey(grid, out_dir=OUT_DIR, device="cuda", agreement=True,
     wall time of the simulator calls (``wall_s``) and of the agreement
     pass (``agreement_s``), each on the host's clock between device
     synchronisations.  ``engine``, ``devices`` and ``stream_rows`` pick
-    the grid runner (``make_grid_runner``)."""
-    dev = resolve_device(device)
+    the grid runner (``make_grid_runner``): ``engine="sharded"`` with
+    ``devices`` above 1 (or ``None`` under a started group) splits each
+    group's rows over the ranks of the default group, which all call
+    ``survey`` alike; ``stats["ranks"]`` and ``stats["rank"]`` say which,
+    rank 0 alone writes the CSVs, and every rank returns the same rows.
+    The other ranks' ``agree_rows`` are empty."""
+    mesh = grid_mesh(devices) if engine == "sharded" else None
+    group = None if mesh is None else grid_host_group(mesh)
+    rank = 0 if group is None else dist.get_rank(group)
+    dev = rank_device(device, mesh)
     points = grid_points(grid)
     dataset, names, t_edges = dataset_axis(grid)
     encoded, groups = encode_graph_batch(names, seed=0, bucket=True,
@@ -302,7 +331,8 @@ def survey(grid, out_dir=OUT_DIR, device="cuda", agreement=True,
     runners = {}                 # only the agreement slice is retained
     stats = dict(groups=0, sims=0, events=0, wall_s=0.0, all_ok=True,
                  sim_calls=0, captures=0, engine=engine,
-                 device=str(dev), dataset=dataset,
+                 ranks=1 if group is None else dist.get_world_size(group),
+                 rank=rank, mesh=mesh, device=str(dev), dataset=dataset,
                  t_edges=("T_EDGES" if t_edges is None else tuple(t_edges)),
                  buckets=[f"{grp.label}:{','.join(grp.names)}"
                           for grp in groups],
@@ -320,7 +350,7 @@ def survey(grid, out_dir=OUT_DIR, device="cuda", agreement=True,
                         netmodel=netmodel, shape=grp.shape, batch=grp.batch,
                         est_cache=est_caches[gi], device=dev,
                         frontier_caps=full_frontier_caps(grp.shape),
-                        engine=engine, devices=devices,
+                        engine=engine, devices=devices, mesh=mesh,
                         stream_rows=stream_rows)
                     _sync(dev)
                     t0 = time.perf_counter()
@@ -354,26 +384,29 @@ def survey(grid, out_dir=OUT_DIR, device="cuda", agreement=True,
         _sync(dev)
         t0 = time.perf_counter()
         agree_rows = agreement_pass(grid, points, encoded, groups, runners,
-                                    stats, dev)
+                                    stats, dev, lead=rank == 0)
         _sync(dev)
         stats["agreement_s"] = time.perf_counter() - t0
-    stats["csv"] = _write_csv("survey_torch", rows, out_dir, SCHEMA)
-    stats["agreement_csv"] = _write_csv("survey_agreement_torch",
-                                        agree_rows, out_dir, AGREE_SCHEMA)
+    stats["csv"] = os.path.join(out_dir, "survey_torch.csv")
+    stats["agreement_csv"] = os.path.join(out_dir,
+                                          "survey_agreement_torch.csv")
+    if rank == 0:
+        _write_csv(stats["csv"], rows, SCHEMA)
+        _write_csv(stats["agreement_csv"], agree_rows, AGREE_SCHEMA)
+    if group is not None:
+        dist.barrier(group=group)       # the CSVs are written
     return rows, agree_rows, stats
 
 
-def _write_csv(name, rows, out_dir, fieldnames):
-    """``<out_dir>/<name>.csv`` with the given columns (not written when
-    there are no rows, as in the reference); returns the path."""
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{name}.csv")
+def _write_csv(path, rows, fieldnames):
+    """``path`` with the given columns (not written when there are no
+    rows, as in the reference)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     if rows:
         with open(path, "w", newline="") as f:
             w = csv.DictWriter(f, fieldnames=list(fieldnames))
             w.writeheader()
             w.writerows(rows)
-    return path
 
 
 def _make_diagnose(runners, grid, points):
@@ -424,16 +457,27 @@ def _make_diagnose(runners, grid, points):
 def check_compiles(stats):
     """The one-program-per-simulator-call contract: every simulator call
     of the grid (one per group, or one per chunk) captured its event
-    step in exactly one CUDA graph.  A mismatch names its cause through
-    ``stats["diagnose"]`` (``_make_diagnose``) when the survey left one."""
-    if stats["captures"] != stats["sim_calls"] or stats["sim_calls"] < \
-            stats["groups"]:
-        msg = (f"CUDA graph captures {stats['captures']} != simulator calls "
-               f"{stats['sim_calls']} over {stats['groups']} groups "
-               f"(engine {stats['engine']}, device {stats['device']}; the "
-               f"CPU runs every step eagerly and captures nothing)")
+    step in exactly one CUDA graph.  On a grid split over ranks, each
+    rank's own calls and captures, with the verdict taken over all
+    ranks: every rank raises if any fails.  A mismatch names its cause
+    through ``stats["diagnose"]`` (``_make_diagnose``) when the survey
+    left one."""
+    counts = [(stats["captures"], stats["sim_calls"], stats["groups"])]
+    if stats.get("mesh") is not None:
+        mine = torch.tensor(counts[0], dtype=torch.int64)
+        got = [torch.empty_like(mine) for _ in range(stats["ranks"])]
+        dist.all_gather(got, mine, group=grid_host_group(stats["mesh"]))
+        counts = [tuple(int(x) for x in g) for g in got]
+    bad = [r for r, (cap, calls, groups) in enumerate(counts)
+           if cap != calls or calls < groups]
+    if bad:
+        msg = "; ".join(
+            f"rank {r}: CUDA graph captures {counts[r][0]} != simulator "
+            f"calls {counts[r][1]} over {counts[r][2]} groups" for r in bad)
+        msg += (f" (engine {stats['engine']}, device {stats['device']}; "
+                f"the CPU runs every step eagerly and captures nothing)")
         diagnose = stats.get("diagnose")
-        if diagnose is not None:
+        if diagnose is not None and stats.get("rank", 0) in bad:
             try:
                 msg += ("\nrecompile diagnosis (repro_torch.analysis):\n"
                         + diagnose())
@@ -503,20 +547,36 @@ def main(argv=None):
                          "(default) or the streaming engine, one call per "
                          "chunk of --stream-rows rows")
     ap.add_argument("--devices", type=int, default=None,
-                    help="sharded engine: number of cards (1; more is not "
-                         "ported)")
+                    help="sharded engine: number of ranks, one card each "
+                         "(above 1: run under torchrun --nproc-per-node "
+                         "n; default the started group, or one card)")
     ap.add_argument("--stream-rows", type=int, default=None,
                     help="sharded engine: double-buffered chunk size in "
                          "grid rows (default: a group's rows in one chunk)")
     args = ap.parse_args(argv)
     grid = dict(FULL_GRID if args.full else MINI_GRID, dataset=args.dataset)
+    # under torchrun: one rank per card, gathered over gloo
+    started = (args.engine == "sharded" and (args.devices or 1) > 1
+               and "WORLD_SIZE" in os.environ and not dist.is_initialized())
+    if started:
+        dist.init_process_group("gloo", timeout=GRID_TIMEOUT)
+    try:
+        return _main(args, grid)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _main(args, grid):
     rows, agree_rows, stats = survey(grid, out_dir=args.out,
                                      device=args.device,
                                      agreement=not args.no_agreement,
                                      engine=args.engine, devices=args.devices,
                                      stream_rows=args.stream_rows)
-    report(rows, agree_rows, stats)
-    print(f"# survey_torch[{stats['dataset']}/{stats['device']}]: "
+    if stats["rank"] == 0:
+        report(rows, agree_rows, stats)
+    print(f"# survey_torch[{stats['dataset']}/{stats['device']}"
+          f"{_rank_tag(stats)}]: "
           f"{len(rows)} grid points, {stats['groups']} groups "
           f"({'; '.join(stats['buckets'])}; "
           f"{'; '.join(stats['cluster_groups'])}; engine {stats['engine']}"
@@ -530,9 +590,14 @@ def main(argv=None):
         except AssertionError as e:
             print(f"error: {e}", file=sys.stderr)
             sys.exit(1)
-        print("# compile-count assertion passed: "
+        print(f"# compile-count assertion passed{_rank_tag(stats)}: "
               f"{stats['captures']} captures == {stats['sim_calls']} "
               f"simulator calls")
+
+
+def _rank_tag(stats):
+    return (f" rank {stats['rank']} of {stats['ranks']}"
+            if stats["ranks"] > 1 else "")
 
 
 if __name__ == "__main__":
