@@ -1,0 +1,7 @@
+"""Simulations (grid rows that finished) per second of the window, in a
+cell of greedy, whose host-bound placement sets the rate."""
+from perfbench.readers import sims_per_s
+
+
+def read(run):
+    return sims_per_s(run)
