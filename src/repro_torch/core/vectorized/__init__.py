@@ -5,7 +5,8 @@ and the grid engine (``engine.py``: ``ShardedGridRunner``,
 (``__all__`` of ``repro.core.vectorized``) but for its XLA-only ones:
 ``abstract_spec``, the jit trace counters and the compile caches
 (``engine.py`` says why); ``capture_counter`` counts the CUDA graphs of
-the event step instead."""
+the event step instead, and ``span_log`` reads the span record that
+every runner call leaves (``_spans``)."""
 from .specs import (GraphSpec, BucketedGraphSpec, BucketGroup, encode_graph,
                     as_bucketed, bucket_shape, pad_spec, pad_specs, pad_to,
                     round_up, spec_from_numpy, stack_specs,
@@ -17,6 +18,7 @@ from .sim import (make_simulator, simulate_batch, make_dynamic_simulator,
                   BucketedGridRunner, DOWNLOAD_SLOTS, PAIR_SLOTS, SimResult)
 from .api import SimConfig, build, build_for_graph, make_grid_runner
 from .engine import ShardedGridRunner, DoubleBufferQueue, capture_counter
+from ._spans import span_log
 from .scheduling import (VEC_SCHEDULERS, make_vec_scheduler,
                          make_bucket_scheduler, bucket_ready_tasks,
                          frontier_mask, make_static_blevel_scheduler,
@@ -41,6 +43,7 @@ __all__ = ["GraphSpec", "BucketedGraphSpec", "BucketGroup", "encode_graph",
            "DOWNLOAD_SLOTS", "PAIR_SLOTS", "SimResult",
            "SimConfig", "build", "build_for_graph", "make_grid_runner",
            "ShardedGridRunner", "DoubleBufferQueue", "capture_counter",
+           "span_log",
            "VEC_SCHEDULERS", "make_vec_scheduler", "make_bucket_scheduler",
            "bucket_ready_tasks", "frontier_mask",
            "make_static_blevel_scheduler", "make_static_tlevel_scheduler",

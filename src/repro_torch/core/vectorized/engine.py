@@ -14,7 +14,11 @@ Here:
   step on the carry and replays it for every later step
   (``SimConfig.step_graph``).  ``capture_counter`` counts captures and
   replays, in place of the reference's ``trace_counter`` and
-  ``exec_counter``.
+  ``exec_counter``, and the seconds of the spans each runner call
+  records in ``_spans`` (from ``grid_call`` down to step 0, the
+  capture, each replay and each poll; always on, reaching a
+  ``torch.profiler`` trace only while a profiler runs), which the
+  reference has no counterpart of.
 * ``ShardedGridRunner`` cuts the ``R = K * B * N`` rows of a
   ``BucketedGridRunner`` call into chunks of one size (the last padded
   by repeating row 0, the padding sliced off) and puts each on the
@@ -51,7 +55,8 @@ import torch.distributed as dist
 
 from ...device import resolve_device
 from ...launch.mesh import grid_host_group, grid_ranks, make_grid_mesh
-from .sim import GRAPH_EVENTS, BucketedGridRunner, SimResult
+from ._spans import GRAPH_EVENTS, totals
+from .sim import BucketedGridRunner, SimResult
 from .specs import spec_from_numpy
 
 __all__ = ["ShardedGridRunner", "DoubleBufferQueue", "capture_counter",
@@ -68,22 +73,47 @@ class capture_counter:
     """Scoped step-graph accounting: ``with capture_counter() as cc:
     ...; cc.calls, cc.captures, cc.replays``.  Every simulator call
     counts in ``calls``; one whose event step runs from a CUDA graph
-    captures once and replays once per later step.  The counts run
-    until the block exits and hold from then on.  Nests safely —
-    delta-based, never resets the process-wide odometers."""
+    captures once and replays once per later step.  ``cc.polls`` counts
+    the host's reads of "any row live", ``cc.place_iters`` the greedy
+    placer's loop iterations, and ``cc.spans`` is ``{name: (count,
+    seconds)}`` of the spans (``_spans``: the span record of every
+    runner call, always on) that closed inside the block; a span summed
+    per step closes with its simulator call.  The counts run until the
+    block exits and hold from then on.  Nests safely — delta-based,
+    never resets the process-wide odometers."""
 
     def __enter__(self):
         self._at = dict(GRAPH_EVENTS)
-        self._end = None
+        self._spans_at = totals()
+        self._end = self._spans_end = None
         return self
 
     def __exit__(self, *exc):
         self._end = dict(GRAPH_EVENTS)
+        self._spans_end = totals()
         return False
 
     def _delta(self, key) -> int:
         end = GRAPH_EVENTS if self._end is None else self._end
         return end[key] - self._at[key]
+
+    @property
+    def spans(self) -> dict:
+        end = totals() if self._spans_end is None else self._spans_end
+        out = {}
+        for name, (n, s) in end.items():
+            n0, s0 = self._spans_at.get(name, (0, 0.0))
+            if n > n0:
+                out[name] = (n - n0, s - s0)
+        return out
+
+    @property
+    def polls(self) -> int:
+        return self._delta("polls")
+
+    @property
+    def place_iters(self) -> int:
+        return self._delta("place_iters")
 
     @property
     def calls(self) -> int:

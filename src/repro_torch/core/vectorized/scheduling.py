@@ -31,6 +31,7 @@ import torch
 
 from ...device import resolve_device
 from ._ops import NEG, take
+from ._spans import GRAPH_EVENTS
 from .specs import BucketedGraphSpec, as_bucketed, spec_rows
 
 # name -> kind; membership == "has a vectorized in-loop implementation"
@@ -601,7 +602,7 @@ def make_bucket_greedy_placer(n_workers, cores):
     the load its successors see — the reference's sequential rule.  The
     loop runs over the ready tasks only, compacted per row in id order;
     its length (the largest ready count over the rows) is read on the
-    host once per call."""
+    host once per call and added to ``GRAPH_EVENTS["place_iters"]``."""
     cores_default = _resolve_cores(n_workers, cores)
 
     def place(bspec, ready_unassigned, cost_tw, load0, cores=None):
@@ -610,6 +611,7 @@ def make_bucket_greedy_placer(n_workers, cores):
         cores_t = _cores_arg(cores, cores_default, R, dev)
         pw = torch.full((R, T + 1), -1, dtype=torch.int64, device=dev)
         n = int(ready_unassigned.sum(dim=1).amax()) if R else 0
+        GRAPH_EVENTS["place_iters"] += n
         if n == 0:
             return pw[:, :T]
         t_ids = torch.arange(T, device=dev)

@@ -67,6 +67,8 @@ import torch
 from ...device import resolve_device
 from ._ops import (NEG, as_rows, fma32, scatter_count, scatter_max,
                    scatter_min, scatter_or, take)
+from ._spans import (GRAPH_EVENTS, PLACE, POLL, PROLOGUE, REPLAY, STEP,
+                     drive, prepared, span)
 from .scheduling import (VEC_SCHEDULERS, _cores_arg, _resolve_cores,
                          bucket_blevel, bucket_transfer_costs, edge_table,
                          graph_view, make_bucket_greedy_placer,
@@ -442,10 +444,13 @@ def _resolve_step_graph(step_graph: str, device) -> bool:
 # call, before the first step
 _DRIVE_OBSERVER = None
 
-# process-wide odometers of the event loops: ``calls`` (simulator calls),
-# ``captures`` (one per call whose step ran from a CUDA graph) and
-# ``replays``; ``engine.capture_counter`` reads them as scoped deltas
-GRAPH_EVENTS = {"calls": 0, "captures": 0, "replays": 0}
+# ``GRAPH_EVENTS`` (``_spans``): the process-wide odometers of the event
+# loops (``calls``, ``captures``, ``replays``, ``polls``,
+# ``place_iters``), read as scoped deltas by ``engine.capture_counter``.
+# Beside them every runner call leaves one tree of spans (``grid_call``
+# down to ``_drive``'s step 0, capture, replays and polls) in
+# ``_spans.LOG``: timestamps and sums always on, ``record_function``
+# ranges only while a profiler runs.
 
 
 def _capture(step, device):
@@ -506,31 +511,57 @@ def _drive(st, body, cond, check_every, graph=False, device=None,
     and its pool are freed when the loop ends.  ``prologue(st, live)``,
     when given, is a first part of the step that reads the host (greedy's
     placement): it runs eagerly into the carry before each replay, and
-    ``body`` is then the rest of the step (eagerly the two run as one)."""
+    ``body`` is then the rest of the step (eagerly the two run as one).
+
+    The call is one ``drive`` span (``_spans``): ``loop`` around every
+    step and poll, once-records ``step0``, ``capture`` and ``free``, and
+    the per-step spans summed into the drive record (``prologue`` and
+    ``replay`` each replayed step, ``step`` each later eager step,
+    ``poll`` each read of ``live``, so ``polls`` = steps /
+    ``check_every`` + 1).  The spans take timestamps around work that
+    is there; none sits inside the captured step."""
     full = body if prologue is None \
         else (lambda st, live: body(prologue(st, live), live))
-    st = {k: v.clone() for k, v in st.items()}   # the carry's own tensors
-    live = cond(st)
-    if _DRIVE_OBSERVER is not None:
-        _DRIVE_OBSERVER(st, live, body, cond, prologue)
-    GRAPH_EVENTS["calls"] += 1
-    replay = free = None
-    try:
-        step = 0
-        while step % check_every or bool(live.any()):
-            if not graph or step == 0:
-                _step_into(st, live, full, cond)
-            else:
-                if prologue is not None:
-                    _step_into(st, live, prologue)
-                if replay is None:
-                    replay, free = _capture(
-                        lambda: _step_into(st, live, body, cond), device)
-                replay()
-            step += 1
-    finally:
-        if free is not None:
-            free()
+    with drive():
+        # the carry's own tensors
+        st = {k: v.clone() for k, v in st.items()}
+        live = cond(st)
+        if _DRIVE_OBSERVER is not None:
+            _DRIVE_OBSERVER(st, live, body, cond, prologue)
+        GRAPH_EVENTS["calls"] += 1
+        replay = free = None
+        try:
+            with span("loop"):
+                step = 0
+                while True:
+                    if step % check_every == 0:
+                        GRAPH_EVENTS["polls"] += 1
+                        with POLL:
+                            more = bool(live.any())
+                        if not more:
+                            break
+                    if step == 0:
+                        with span("step0"):
+                            _step_into(st, live, full, cond)
+                    elif not graph:
+                        with STEP:
+                            _step_into(st, live, full, cond)
+                    else:
+                        if prologue is not None:
+                            with PROLOGUE:
+                                _step_into(st, live, prologue)
+                        if replay is None:
+                            with span("capture"):
+                                replay, free = _capture(
+                                    lambda: _step_into(st, live, body, cond),
+                                    device)
+                        with REPLAY:
+                            replay()
+                    step += 1
+        finally:
+            if free is not None:
+                with span("free"):
+                    free()
     return st
 
 
@@ -616,6 +647,7 @@ def make_bucket_simulator(n_workers: int, cores, netmodel: str = "maxmin",
     wf = None if simple else _make_waterfill(waterfill_impl, dev, graph)
     S = W * DOWNLOAD_SLOTS
 
+    @prepared
     def run(bspec, assignment, priority, durations=None, sizes=None,
             bandwidth=100 * 1024 * 1024.0, cores=None):
         a = torch.as_tensor(np.asarray(assignment)
@@ -989,6 +1021,7 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
                                                 max_cores)
         greedy_place = None
 
+    @prepared
     def run(bspec, est_durations, est_sizes, msd=0.0, decision_delay=0.0,
             bandwidth=100 * 1024 * 1024.0, seed=0, cores=None):
         est_d = torch.as_tensor(np.asarray(est_durations)
@@ -1033,7 +1066,8 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
         granule = _granule(dev)
 
         if dynamic_sched:
-            greedy_prio = rank_priorities(bucket_blevel(g, est_dur))
+            with span("schedule", dev):
+                greedy_prio = rank_priorities(bucket_blevel(g, est_dur))
             p_worker0 = torch.full((R, T), -1, dtype=torch.int64, device=dev)
             p_prio0 = torch.zeros(R, T, device=dev)
             p_time0 = torch.full((R, T), INF, device=dev)
@@ -1041,8 +1075,9 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
         else:
             # static schedule == the single invocation at t=0, computed
             # from pure estimates; it reaches workers after the delay
-            aw0, prio0 = static_schedule(g, est_dur, est_size, bandwidth_,
-                                         seed_, cores_t)
+            with span("schedule", dev):
+                aw0, prio0 = static_schedule(g, est_dur, est_size,
+                                             bandwidth_, seed_, cores_t)
             p_worker0 = torch.where(task_valid, aw0, -1)
             p_prio0 = prio0
             p_time0 = torch.where(task_valid, delay[:, None], INF)
@@ -1159,7 +1194,9 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
                           & ~st["t_started"] & ~st["t_done"])
                 qworker = torch.where(st["aw"] >= 0, st["aw"], st["pw"])
                 load0 = scatter_count(W, qworker.clamp(min=0), queued)
-                new_pw = greedy_place(g, placing, cost_tw, load0, cores_t)
+                with PLACE:
+                    new_pw = greedy_place(g, placing, cost_tw, load0,
+                                          cores_t)
                 newly = due[:, None] & (new_pw >= 0)
                 st["pw"] = torch.where(newly, new_pw, st["pw"])
                 st["pp"] = torch.where(newly, greedy_prio, st["pp"])
@@ -1613,12 +1650,13 @@ class BucketedGridRunner:
         """The flattened ``R = K * B * N`` row arguments of one grid call:
         ``(spec, est_durations, est_sizes, msd, decision_delay,
         bandwidth, seed, cores)`` as tensors on the runner's device."""
-        b_of, args = self._row_index(points)
-        dev = self.device
-        b_idx = torch.as_tensor(b_of, device=dev)
-        spec = self._bspec_dev.map(lambda x: x.index_select(0, b_idx))
-        return (spec, *(torch.as_tensor(np.ascontiguousarray(a), device=dev)
-                        for a in args))
+        with span("rows_in"):
+            b_of, args = self._row_index(points)
+            dev = self.device
+            b_idx = torch.as_tensor(b_of, device=dev)
+            spec = self._bspec_dev.map(lambda x: x.index_select(0, b_idx))
+            return (spec, *(torch.as_tensor(np.ascontiguousarray(a),
+                                            device=dev) for a in args))
 
     def _execute(self, points):
         """One simulator call over all rows: a ``SimResult`` of ``[R]``
@@ -1628,14 +1666,17 @@ class BucketedGridRunner:
 
     def __call__(self, points):
         """Run the grid; returns ``SimResult`` of numpy ``[K, B, N]``
-        arrays with the graph axis in ``self.names`` order."""
+        arrays with the graph axis in ``self.names`` order.  The call is
+        one ``grid_call`` span tree (``_spans``)."""
         points = list(points)
         K, B, N = self.K, self.B, len(points)
-        res = self._execute(points)
-        out = SimResult(*(x.cpu().numpy().reshape(B, N, K)
-                          .transpose(2, 0, 1) for x in res))
-        _check_ok(out.ok, f"{type(self).__name__}({self.names!r}, "
-                          f"{self.scheduler!r})", out.overflow)
+        with span("grid_call"):
+            res = self._execute(points)
+            with span("results_out"):
+                out = SimResult(*(x.cpu().numpy().reshape(B, N, K)
+                                  .transpose(2, 0, 1) for x in res))
+                _check_ok(out.ok, f"{type(self).__name__}({self.names!r}, "
+                                  f"{self.scheduler!r})", out.overflow)
         return out
 
 

@@ -324,6 +324,56 @@ def test_step_graph_auto_captures_on_the_card(dev):
     assert torch.cuda.memory_allocated(dev) <= base + (1 << 20)
 
 
+
+@pytest.mark.parametrize("sched", ["blevel", "greedy"])
+def test_spans_of_a_runner_call_on_the_card(dev, sched):
+    """The span record of one runner call replayed from a CUDA graph:
+    eager step 0, one capture, one replay a later step (greedy: its
+    eager prologue before each), the graph freed, the per-step spans
+    inside the loop, and the schedule's stream time from its CUDA events
+    once the call's results are on the host."""
+    import time
+    from repro_torch.core import MiB
+    from repro_torch.core.graphs import encode_graph_batch, survey_names
+    from repro_torch.core.vectorized import (capture_counter,
+                                             make_grid_runner, span_log)
+    encoded, groups = encode_graph_batch(survey_names(1), bucket=True)
+    grp = groups[0]
+    points = [dict(bandwidth=32 * MiB, imode="user", msd=0.1,
+                   decision_delay=0.05),
+              dict(bandwidth=256 * MiB, imode="exact", msd=0.0)]
+    run = make_grid_runner([encoded[n] for n in grp.names], sched, 8,
+                           [4] * 8, shape=grp.shape, batch=grp.batch,
+                           device=dev)
+    t0 = time.perf_counter()
+    with capture_counter() as cc:
+        res = run(points)
+    recs, dropped = span_log(t0, time.perf_counter())
+    assert dropped == 0 and bool(res.ok.all())
+    names = {r["name"]: r for r in recs}
+    assert {"grid_call", "rows_in", "prepare", "schedule", "drive", "loop",
+            "step0", "capture", "free", "results_out"} == set(names)
+    assert len(recs) == len(names)
+    d = names["drive"]
+    c = d["counters"]
+    assert c["calls"] == cc.calls == 1
+    assert c["captures"] == cc.captures == 1
+    assert c["replays"] == cc.replays == d["sums"]["replay"][0] > 0
+    steps = c["replays"] + 1
+    assert c["polls"] == d["sums"]["poll"][0] == steps // 16 + 1
+    assert steps % 16 == 0 and int(res.n_steps.max()) <= steps
+    if sched == "greedy":
+        assert d["sums"]["prologue"][0] == c["replays"]
+        assert c["place_iters"] == cc.place_iters > 0
+    else:
+        assert "prologue" not in d["sums"] and c["place_iters"] == 0
+    loop = names["loop"]
+    inside = sum(names[n]["end"] - names[n]["start"]
+                 for n in ("step0", "capture")) + sum(
+        d["sums"].get(n, (0, 0.0))[1] for n in ("prologue", "replay", "poll"))
+    assert inside <= loop["end"] - loop["start"]
+    assert 0.0 < names["schedule"]["device_s"] < 60.0
+
 ATTN = [  # B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len
     (2, 25, 5, 64, 80, 64, True, 16, 64),
     (2, 25, 5, 1, 80, 64, True, 16, 70),
