@@ -37,6 +37,19 @@ printing one JSON line:
    simulator's solve: F 992 and F 2016 flows per row (R 96, W 32), more
    than one block's threads, on the block route: bitwise, timed from a
    CUDA graph, beside the plain version and a bytes bound.
+3b. ``kernel_greedy_place``: greedy's placement kernel against its plain
+   version (``scheduling.greedy_place_plain`` on the card), bitwise in
+   the proposed workers and the placer-iteration tally, or fail: the
+   pegasus buckets of the benchmark's greedy cell at W 16 (R 360 at
+   T160, R 240 at T512), R 1800 at T512 and W 32, W 40 (a lane strides
+   over two words of workers); equal costs and loads, no worker with
+   enough cores, no row placing, no input edge (D 0), and cybershake's
+   80-input task placing in every other row.  Each cell shape is timed,
+   with 30 % and with 3 % of the tasks placing:
+   ``ms`` replayed from a CUDA graph, ``eager_ms`` by CUDA events, the
+   plain version by CUDA events, beside a bytes bound (each input byte
+   the placement needs read once, ``new_pw`` written once, at 3.35
+   TB/s).
 4. ``golden``: the dynamic simulator against the reference package's
    recorded ``BENCH_PR7.json`` dynamic rows (blevel, maxmin, frontier
    on, 100 MiB/s, exact imode, msd 0).
@@ -57,9 +70,11 @@ printing one JSON line:
    launches by route.
 8. ``survey_full_width``: the full grid's T512 bucket on cluster 32x4
    (W = 32, 128 flow slots, 64 resources), all 24 points, blevel and
-   greedy on maxmin, through the plain version and the kernel in turns
+   greedy on maxmin, through K1's plain version and K1 in turns
    (plain, kernel, kernel, plain) on the card; the results must agree
-   and every launch of the main path must take the warp route.  One
+   and every launch of the main path must take the warp route.  Only
+   K1 differs between the turns: greedy's placement kernel runs in
+   both, as often in each.  One
    more blevel run through the kernel, under ``torch.profiler`` and
    outside the timed turns, gives the card's busy and idle share during
    a survey and K1's share of the device time.  Then the agreement at
@@ -77,7 +92,8 @@ printing one JSON line:
    (``sharded`` graph, ``ShardedGridRunner``), in turns (a, b, c, c, b,
    a); then one eager streamed run.  Every run bitwise equal in every
    field, each graph run launching K1 as often as the eager run of the
-   same calls (all ``warp``), one capture per simulator call (3 for
+   same calls (all ``warp``), and greedy's placement once a loop step,
+   one capture per simulator call (3 for
    ``sharded``).  Prints events/s and wall ms per loop step of each,
    and the device busy and idle share of one more blevel graph run
    under the profiler.
@@ -308,8 +324,12 @@ printing one JSON line:
     ``serve_hymba``,
     ``train_hymba``, the four serve family phases, the three train
     family phases and ``mesh``, K3's over ``serve_hymba``,
-    ``train_hymba`` and ``mesh``; K1 and K2 also by route); needs every
-    kernel's check phase and the phases of its paths in the same run.
+    ``train_hymba`` and ``mesh``, greedy's placement over the same
+    main-path runs as K1's in ``survey_agreement``, ``survey_dataset``,
+    ``survey_full_width``, ``survey_engine``, ``survey_ranks`` and
+    ``escape_hatches``, each zeroed just before its run and read just
+    after; K1 and K2 also by route); needs every kernel's check phase and the
+    phases of its paths in the same run.
 
 Every simulator phase but ``survey_engine``'s eager turns, the eager
 turn of ``static_full_width`` and the input recording of
@@ -338,7 +358,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-PHASES = ("env", "build", "kernel_waterfill", "golden", "survey_mini",
+PHASES = ("env", "build", "kernel_waterfill", "kernel_greedy_place",
+          "golden", "survey_mini",
           "survey_agreement", "survey_dataset", "survey_full_width",
           "survey_engine", "survey_ranks", "static_golden",
           "static_full_width", "genetic_vec",
@@ -890,6 +911,143 @@ def phase_kernel_waterfill(seed=0, path_rows=96, path_w=32):
                 per_edge=per_edge)
 
 
+# graphs and bucket shapes of the greedy cell's two pegasus buckets
+PLACE_T160 = (("montage", "cybershake", "sipht"), (160, 160, 224))
+PLACE_T512 = (("epigenomics", "ligo"), (512, 320, 320))
+
+
+def _place_inputs(graphs, shape, R, W, seed, p_place=0.3, ties=False,
+                  fit_none=False):
+    """Seeded inputs of one greedy placement on the card, row r on graph
+    ``r % len(graphs)`` padded to ``shape``: the wrapper's positional
+    arguments (``tally`` at 0).  Every 7th row places nothing; the task
+    with the most inputs places in every other row (unless ``p_place``
+    is 0).  ``ties``: sizes whole MiB of 0-3, loads 0-2; ``fit_none``:
+    no worker has any task's cores."""
+    import numpy as np
+    import torch
+    from repro_torch.core.graphs import make_graph
+    from repro_torch.core.vectorized.scheduling import edge_table, graph_view
+    from repro_torch.core.vectorized.specs import (encode_graph, pad_spec,
+                                                   stack_specs)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    specs = [pad_spec(encode_graph(make_graph(n, seed=0)), shape)
+             for n in graphs]
+    g = graph_view(stack_specs([specs[r % len(specs)] for r in range(R)])
+                   .to(dev))
+    T, O = g.T, g.O
+    table = edge_table(g).contiguous()
+    placing = rng.random((R, T)) < p_place
+    widest = (table >= 0).sum(dim=2).argmax(dim=1).cpu().numpy()
+    if p_place > 0:
+        placing[np.arange(0, R, 2), widest[::2]] = True
+    placing[::7] = False
+    placing = torch.as_tensor(placing, device=dev) & g.task_valid
+    if ties:
+        sizes = rng.integers(0, 4, (R, O)).astype(np.float32) * 2 ** 20
+        load0 = rng.integers(0, 3, (R, W))
+    else:
+        sizes = rng.lognormal(17, 2, (R, O)).astype(np.float32)
+        load0 = rng.integers(0, 6, (R, W))
+    cores = rng.integers(1, 5, (R, W))
+    cores[1::3, -1] = 0
+    if fit_none:
+        cores[:] = 0
+    return (placing, table, g.e_obj.contiguous(),
+            torch.where(g.obj_valid, torch.as_tensor(sizes, device=dev),
+                        0.0),
+            torch.as_tensor(rng.random((R, O, W)) < 0.6, device=dev),
+            g.cpus.contiguous(), torch.as_tensor(cores, device=dev),
+            torch.as_tensor(load0, device=dev),
+            torch.zeros(3, dtype=torch.int64, device=dev))
+
+
+def _place_bytes(args):
+    """The bytes one placement needs: the placing flags, each placing
+    task's cores and input-edge entries and objects, each object those
+    edges reach (its size and W missing flags) once a row, the workers'
+    cores and loads, read once; ``new_pw`` written once."""
+    import torch
+    placing, table, e_obj, _, missing, _, cores, _, _ = args
+    R, T = placing.shape
+    O, W = missing.shape[1], missing.shape[2]
+    ids = torch.where(placing[:, :, None], table, -1)
+    valid = ids >= 0
+    n_edges = int(valid.sum())
+    objs = torch.gather(e_obj, 1, ids.clamp(min=0).reshape(R, -1))
+    reached = torch.zeros(R, O + 1, dtype=torch.bool, device=objs.device)
+    reached.scatter_(1, torch.where(valid.reshape(R, -1), objs, O), True)
+    n_objs = int(reached[:, :O].sum())
+    return (R * T + 8 * int(placing.sum()) + 16 * n_edges
+            + n_objs * (4 + W) + 16 * R * W + 8 * R * T)
+
+
+def phase_kernel_greedy_place(seed=0):
+    import torch
+    from repro_torch.core.vectorized.scheduling import greedy_place_plain
+    from repro_torch.kernels import greedy_place as gk
+    checks, timing = [], []
+    # the cells' shapes, timed at p_place 0.3 and 0.03 (the main path
+    # places about 6 tasks in its widest row a step)
+    cells = {"t160_r360_w16": (PLACE_T160, 360, 16),
+             "t512_r240_w16": (PLACE_T512, 240, 16),
+             "t512_r1800_w32": (PLACE_T512, 1800, 32)}
+    cells.update({f"{k}_sparse": v + (dict(p_place=0.03),)
+                  for k, v in list(cells.items())})
+    cases = dict(cells)
+    cases.update({
+        "t512_r240_w40": (PLACE_T512, 240, 40, {}),
+        "ties_t160_w16": (PLACE_T160, 360, 16, dict(ties=True)),
+        "fit_none_t160_w16": (PLACE_T160, 96, 16, dict(fit_none=True)),
+        "nothing_placing_t512_w16": (PLACE_T512, 96, 16,
+                                     dict(p_place=0.0)),
+        "d0_t160_w16": (PLACE_T160, 96, 16, dict(ties=True, d0=True)),
+    })
+    for i, (name, case) in enumerate(cases.items()):
+        (graphs, shape), R, W = case[:3]
+        kw = dict(case[3]) if len(case) > 3 else {}
+        d0 = kw.pop("d0", False)
+        args = list(_place_inputs(graphs, shape, R, W, seed + i, **kw))
+        if d0:
+            args[1] = args[1][:, :, :0].contiguous()
+        want_tally = torch.zeros(3, dtype=torch.int64, device="cuda")
+        want = greedy_place_plain(*args[:8], want_tally)
+        got = gk.greedy_place(*args)
+        # a second launch adds to the tally once more: its scratch reset
+        again = gk.greedy_place(*args)
+        torch.cuda.synchronize()
+        tally = args[8].tolist()
+        ok = (torch.equal(got, want) and torch.equal(again, want)
+              and tally == [2 * int(want_tally[0]), 0, 0])
+        checks.append(dict(case=name, R=R, W=W, T=shape[0],
+                           D=args[1].shape[2], placing_max=int(
+                               args[0].sum(dim=1).amax()),
+                           tally=tally, bitwise=ok))
+        if not ok:
+            raise AssertionError(f"kernel_greedy_place {name}: the kernel "
+                                 f"differs from the plain version "
+                                 f"({checks[-1]})")
+        if name in cells:
+            nbytes = _place_bytes(args)
+            bound_ms, bound_by = _bound(nbytes, 0, F32_OPS_PER_S)
+
+            def kernel():
+                return gk.greedy_place(*args)
+            timing.append(dict(
+                case=name, R=R, W=W, T=shape[0], D=args[1].shape[2],
+                ms=cuda_graph_ms(kernel, iters=50), timed="cuda_graph",
+                eager_ms=cuda_time_ms(kernel, iters=50),
+                plain_ms=cuda_time_ms(lambda: greedy_place_plain(
+                    *args[:8], want_tally), iters=5, warmup=1),
+                bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None))
+    emit("kernel_greedy_place", checks=checks,
+         all_bitwise=all(c["bitwise"] for c in checks), timing=timing,
+         card=CARD)
+    return dict(max_abs_err=0.0, path=timing[0], timing=timing)
+
+
 def _path_input_timing(plain_sample=16):
     """K1 on the main path's own inputs: every call of one blevel run of
     the survey_full_width cell, recorded, then checked bitwise on both
@@ -1023,20 +1181,36 @@ def _mini_t160_group():
             grid_points(MINI_GRID), full_frontier_caps(grp.shape))
 
 
+def _reset_launches():
+    """Zero K1's and greedy placement's launch counts: a main-path run's
+    counts are zeroed just before it and read just after."""
+    from repro_torch.kernels import (GREEDY_PLACE_LAUNCHES,
+                                     WATERFILL_LAUNCHES)
+    WATERFILL_LAUNCHES.reset()
+    GREEDY_PLACE_LAUNCHES.reset()
+
+
+def _greedy_launches():
+    from repro_torch.kernels import GREEDY_PLACE_LAUNCHES
+    return GREEDY_PLACE_LAUNCHES.count
+
+
 def _hatch_call(runner, points):
     """One call of a grid runner: ``(result, wall s, K1 launches, K1
-    routes, simulator calls, captures)``, K1 zeroed just before."""
+    routes, simulator calls, captures, greedy placement launches)``, the
+    counts zeroed just before."""
     import torch
     from repro_torch.core.vectorized import capture_counter
     from repro_torch.kernels import WATERFILL_LAUNCHES
-    WATERFILL_LAUNCHES.reset()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with capture_counter() as cc:
         r = runner(points)
     torch.cuda.synchronize()
     return (r, time.perf_counter() - t0, WATERFILL_LAUNCHES.count,
-            dict(WATERFILL_LAUNCHES.routes), cc.calls, cc.captures)
+            dict(WATERFILL_LAUNCHES.routes), cc.calls, cc.captures,
+            _greedy_launches())
 
 
 def _same_as_default(res, base):
@@ -1060,17 +1234,19 @@ def phase_escape_hatches():
     full grid's T512 blevel group on 32x4 (in turns) per hatch against
     the default path in the same call: makespan, ok, steps and events
     bitwise, transferred within 1e-5.  Every simulator call captures one
-    CUDA graph.  Returns K1's launches and routes on the hatch runs."""
+    CUDA graph.  Returns K1's launches and routes, and greedy
+    placement's launches, on the hatch runs."""
     import numpy as np
     from repro_torch.core.graphs import make_graph
     from repro_torch.core.vectorized import make_grid_runner
-    launches = [0, {"warp": 0, "block": 0}]
+    launches = [0, {"warp": 0, "block": 0}, 0]
     failures = []
 
     def count(call):
         launches[0] += call[2]
         for r, n in call[3].items():
             launches[1][r] += n
+        launches[2] += call[6]
 
     golden = []
     for name, graph in (("merge_triplets", make_graph("merge_triplets",
@@ -1079,12 +1255,13 @@ def phase_escape_hatches():
         by_mode = {m: [] for m in HATCHES}
         for mode in HATCH_TURNS:
             from repro_torch.kernels import WATERFILL_LAUNCHES
-            WATERFILL_LAUNCHES.reset()
+            _reset_launches()
             row, good = _golden_row(name, graph, **HATCHES[mode])
             row.update(k1=WATERFILL_LAUNCHES.count,
                        k1_routes=dict(WATERFILL_LAUNCHES.routes))
             if mode != "default":
-                count((None, None, row["k1"], row["k1_routes"]))
+                count((None, None, row["k1"], row["k1_routes"], None, None,
+                       _greedy_launches()))
             by_mode[mode].append(row)
             if not (good and row["sim_calls"] == row["captures"] == 1):
                 failures.append(f"golden {name} {mode}: {row}")
@@ -1126,6 +1303,7 @@ def phase_escape_hatches():
             for mode, c in calls.items():
                 exact, x_rel = _same_as_default(c[0], base)
                 row[mode] = dict(wall_s=c[1], k1=c[2], k1_routes=c[3],
+                                 greedy_place=c[6],
                                  sim_calls=c[4], captures=c[5],
                                  bitwise=exact, transferred_max_rel=x_rel)
                 if not (exact and x_rel <= 1e-5 and c[4] == c[5] == 1):
@@ -1166,10 +1344,11 @@ def phase_escape_hatches():
     ok = not failures and full["all_ok"] and all(r["all_ok"] for r in mini)
     emit("escape_hatches", golden=golden, t160=mini, t512=full,
          waterfill_launches=launches[0], waterfill_launch_routes=launches[1],
-         failures=failures, card=CARD, ok=ok)
+         greedy_place_launches=launches[2], failures=failures, card=CARD,
+         ok=ok)
     if not ok:
         raise AssertionError(f"escape_hatches: {failures}")
-    return launches[0], launches[1]
+    return tuple(launches)
 
 
 def phase_simlint():
@@ -1192,7 +1371,6 @@ def phase_simlint():
                                      for f in found) for r in sorted(RULES)},
          host_reads_in_steps=host_reads,
          step_ops=sum(s["ops"]["step"] for s in stats.values()),
-         prologue_ops=sum(s["ops"]["prologue"] for s in stats.values()),
          findings=[f.render() for f in act],
          seconds=time.perf_counter() - t0, ok=ok)
     if not ok:
@@ -1221,18 +1399,20 @@ def phase_survey_mini():
 def _agreement_survey(phase, dataset, want):
     """The mini grid over ``dataset`` through ``survey(...)`` with the
     agreement pass on the card, K1's launches counted from just before
-    to just after.  Returns ``(rows, stats, line, good)``: ``line`` the
-    phase's fields, ``good`` whether every simulation was ok, K1 ran and
-    every ratio equals ``want[(graph, scheduler)]`` within RTOL."""
+    to just after, and greedy placement's with them.  Returns ``(rows,
+    stats, line, good)``: ``line`` the phase's fields, ``good`` whether
+    every simulation was ok, K1 and greedy's placement ran and every
+    ratio equals ``want[(graph, scheduler)]`` within RTOL."""
     from repro_torch.kernels import WATERFILL_LAUNCHES
     from repro_torch.survey import MINI_GRID, geomean, survey
     grid = dict(MINI_GRID, dataset=dataset)
-    WATERFILL_LAUNCHES.reset()
+    _reset_launches()
     rows, agree, stats = survey(grid, out_dir=os.path.join(
         HERE, "results", "chip_smoke", phase), device="cuda",
         agreement=True)
     launches = WATERFILL_LAUNCHES.count
     routes = dict(WATERFILL_LAUNCHES.routes)
+    greedy = _greedy_launches()
     plain = [a for a in agree if a["graph_name"] != "__pergraph_path__"]
     per = [a for a in agree if a["graph_name"] == "__pergraph_path__"]
     ratios, worst = [], 0.0
@@ -1261,10 +1441,11 @@ def _agreement_survey(phase, dataset, want):
                 sim_calls=stats["sim_calls"], graph_captures=stats["captures"],
                 ratios=ratios, worst_rel_err=worst,
                 waterfill_launches=launches,
-                waterfill_launch_routes=routes, card=CARD)
+                waterfill_launch_routes=routes,
+                greedy_place_launches=greedy, card=CARD)
     good = (stats["all_ok"] and len(plain) == len(want) and len(per) == 1
             and {(r["graph"], r["scheduler"]) for r in ratios} == set(want)
-            and worst <= RTOL and launches > 0
+            and worst <= RTOL and launches > 0 and greedy > 0
             and stats["captures"] == stats["sim_calls"] == stats["groups"])
     return rows, stats, line, good
 
@@ -1277,7 +1458,8 @@ def phase_survey_agreement():
     if not good:
         raise AssertionError("survey_agreement: the mini survey's agreement "
                              "rows disagree with the reference's")
-    return line["waterfill_launches"], line["waterfill_launch_routes"]
+    return (line["waterfill_launches"], line["waterfill_launch_routes"],
+            line["greedy_place_launches"])
 
 
 def phase_survey_dataset():
@@ -1292,7 +1474,8 @@ def phase_survey_dataset():
     if not good:
         raise AssertionError("survey_dataset: the wfcommons-mini survey "
                              "disagrees with the reference's")
-    return line["waterfill_launches"], line["waterfill_launch_routes"]
+    return (line["waterfill_launches"], line["waterfill_launch_routes"],
+            line["greedy_place_launches"])
 
 
 def _full_width_agreement(sched, res, points):
@@ -1326,26 +1509,31 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
     _, grp, _, points = _full_width_group()
     out = []
     main_path = dict(count=0, routes=dict.fromkeys(WATERFILL_LAUNCHES.routes,
-                                                   0))
+                                                   0), greedy_place=0)
     for sched in schedulers:
         runners = {impl: _full_width_runner(sched, impl)
                    for impl in ("auto", "torch")}
         res = {"auto": [], "torch": []}
         # in turns (plain, kernel, kernel, plain) on one card, so host
-        # noise does not favour either side
+        # noise does not favour either side; "plain" is K1's plain
+        # version: greedy's placement kernel runs in every turn
         for impl in ("torch", "auto", "auto", "torch"):
-            # the main path's own count: zeroed just before, read just after
-            WATERFILL_LAUNCHES.reset()
+            # the main path's own counts: zeroed just before, read just
+            # after
+            _reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r = runners[impl](points)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             res[impl].append((r, wall, WATERFILL_LAUNCHES.count,
-                              dict(WATERFILL_LAUNCHES.routes)))
+                              dict(WATERFILL_LAUNCHES.routes),
+                              _greedy_launches()))
         ra, la, routes = (res["auto"][0][i] for i in (0, 2, 3))
         rt, lt = res["torch"][0][0], res["torch"][0][2]
+        greedy = [x[4] for impl in res for x in res[impl]]
         main_path["count"] += la
+        main_path["greedy_place"] += res["auto"][0][4]
         for k, v in routes.items():
             main_path["routes"][k] += v
         runs = [x[0] for impl in res for x in res[impl]]
@@ -1365,6 +1553,9 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
                    rows=int(ra.ok.size), all_ok=bool(ra.ok.all()),
                    events=ev, max_steps=int(ra.n_steps.max()),
                    order="plain,kernel,kernel,plain",
+                   plain_means="K1's plain version (waterfill_impl "
+                               "'torch'); greedy's placement kernel runs "
+                               "in every turn",
                    kernel_wall_s=k_walls,
                    kernel_events_per_s=[ev / w for w in k_walls],
                    plain_wall_s=p_walls,
@@ -1372,6 +1563,7 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
                    kernel_launches=[x[2] for x in res["auto"]],
                    kernel_launch_routes=[x[3] for x in res["auto"]],
                    plain_launches=[x[2] for x in res["torch"]],
+                   greedy_place_launches=greedy,
                    counts_equal=same_counts, makespan_max_rel=ms_rel,
                    transferred_max_rel=x_rel,
                    bitwise_makespan=all(np.array_equal(x.makespan,
@@ -1393,15 +1585,19 @@ def phase_survey_full_width(schedulers=("blevel", "greedy")):
         if not (row["all_ok"] and same_counts and ms_rel <= RTOL
                 and x_rel <= RTOL and la > 0 and lt == 0
                 and routes["warp"] == la and agree_ok
-                and all(n == 0 for n in row["plain_launches"])):
+                and all(n == 0 for n in row["plain_launches"])
+                and len(set(greedy)) == 1
+                and (greedy[0] > 0) == (sched == "greedy")):
             emit("survey_full_width", rows=out, ok=False)
             raise AssertionError(f"full-width group disagrees: {row}")
     ratios = [a["ratio"] for r in out for a in r["agreement"]]
     emit("survey_full_width", rows=out, ok=True, card=CARD,
          agreement_worst_abs_ratio_minus_1=max(abs(x - 1) for x in ratios),
          waterfill_launches=main_path["count"],
-         waterfill_launch_routes=main_path["routes"])
-    return main_path
+         waterfill_launch_routes=main_path["routes"],
+         greedy_place_launches=main_path["greedy_place"])
+    return (main_path["count"], main_path["routes"],
+            main_path["greedy_place"])
 
 
 ENGINE_TURNS = (("vmap", "eager"), ("vmap", "graph"), ("sharded", "graph"))
@@ -1409,18 +1605,19 @@ ENGINE_TURNS = (("vmap", "eager"), ("vmap", "graph"), ("sharded", "graph"))
 
 def _engine_turn(runner, points):
     """One timed call of ``runner``: ``(result, wall s, K1 launches, K1
-    routes, capture_counter)``, K1's count zeroed just before."""
+    routes, capture_counter, greedy placement launches)``, the counts
+    zeroed just before."""
     import torch
     from repro_torch.core.vectorized import capture_counter
     from repro_torch.kernels import WATERFILL_LAUNCHES
-    WATERFILL_LAUNCHES.reset()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with capture_counter() as cc:
         r = runner(points)
     torch.cuda.synchronize()
     return (r, time.perf_counter() - t0, WATERFILL_LAUNCHES.count,
-            dict(WATERFILL_LAUNCHES.routes), cc)
+            dict(WATERFILL_LAUNCHES.routes), cc, _greedy_launches())
 
 
 def phase_survey_engine(schedulers=("blevel", "greedy"), stream_rows=32):
@@ -1430,11 +1627,14 @@ def phase_survey_engine(schedulers=("blevel", "greedy"), stream_rows=32):
     from the graph, in turns (a, b, c, c, b, a) inside this call; then
     one eager streamed run for its K1 count.  Fails unless every run is
     bitwise equal, each graph run launches K1 as often as the eager run
-    of the same calls (all ``warp``), and each graph run captures once
-    per simulator call (chunks for ``sharded``)."""
+    of the same calls (all ``warp``), greedy's placement once a loop
+    step (none for blevel), and each graph run captures once per
+    simulator call (chunks for ``sharded``).  Returns K1's launches and
+    routes, and greedy placement's launches, of each scheduler's first
+    streamed graph turn."""
     import numpy as np
     _, grp, _, points = _full_width_group()
-    out, k1 = [], [0, {}]
+    out, k1 = [], [0, {}, 0]
     for sched in schedulers:
         runners = {(eng, sg): _full_width_runner(
             sched, "auto", step_graph=sg, engine=eng,
@@ -1474,6 +1674,7 @@ def phase_survey_engine(schedulers=("blevel", "greedy"), stream_rows=32):
                 wall_ms_per_step=[t[1] * 1e3 / steps for t in ts],
                 loop_steps=steps, k1_launches=launches,
                 k1_routes=[t[3] for t in ts],
+                greedy_place_launches=[t[5] for t in ts],
                 sim_calls=[t[4].calls for t in ts],
                 captures=[t[4].captures for t in ts],
                 replays=[t[4].replays for t in ts])
@@ -1484,11 +1685,14 @@ def phase_survey_engine(schedulers=("blevel", "greedy"), stream_rows=32):
                             for t in ts)
                     and all(n == eager_launches and n == steps for n
                             in launches)
-                    and all(t[3]["warp"] == t[2] for t in ts))
+                    and all(t[3]["warp"] == t[2] for t in ts)
+                    and all(t[5] == (steps if sched == "greedy" else 0)
+                            for t in ts))
         sg = row["sharded_graph"]
         k1[0] += sg["k1_launches"][0]
         for r, n in sg["k1_routes"][0].items():
             k1[1][r] = k1[1].get(r, 0) + n
+        k1[2] += sg["greedy_place_launches"][0]
         if sched == "blevel":
             # one more graph run of all rows, outside the turns, under
             # the profiler: the card's busy and idle share with the step
@@ -1501,8 +1705,9 @@ def phase_survey_engine(schedulers=("blevel", "greedy"), stream_rows=32):
             raise AssertionError(f"survey_engine: {sched} disagrees between "
                                  f"engines or step modes: {row}")
     emit("survey_engine", rows=out, ok=True, card=CARD,
-         waterfill_launches=k1[0], waterfill_launch_routes=k1[1])
-    return k1[0], k1[1]
+         waterfill_launches=k1[0], waterfill_launch_routes=k1[1],
+         greedy_place_launches=k1[2])
+    return tuple(k1)
 
 
 # ------------------------------------------- the grid engine over ranks
@@ -1523,13 +1728,14 @@ dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                         rank=rank, world_size=cs.RANKS,
                         timeout=timedelta(seconds=cs.RANKS_TIMEOUT_S))
 from repro_torch.core.vectorized import capture_counter
-from repro_torch.kernels import WATERFILL_LAUNCHES
+from repro_torch.kernels import GREEDY_PLACE_LAUNCHES, WATERFILL_LAUNCHES
 points = cs._full_width_group()[3]
 rec = {}
 for sched in sys.argv[4].split(","):
     runner = cs._full_width_runner(sched, "auto", engine="sharded",
                                    devices=cs.RANKS, stream_rows=32)
     WATERFILL_LAUNCHES.reset()
+    GREEDY_PLACE_LAUNCHES.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with capture_counter() as cc:
@@ -1543,7 +1749,8 @@ for sched in sys.argv[4].split(","):
         events=int(res.n_events.sum()), calls=cc.calls,
         captures=cc.captures, replays=cc.replays,
         k1_launches=WATERFILL_LAUNCHES.count,
-        k1_routes=dict(WATERFILL_LAUNCHES.routes))
+        k1_routes=dict(WATERFILL_LAUNCHES.routes),
+        greedy_place_launches=GREEDY_PLACE_LAUNCHES.count)
 with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
     json.dump(rec, f)
 dist.destroy_process_group()
@@ -1645,7 +1852,7 @@ def phase_survey_ranks(schedulers=("blevel", "greedy"), stream_rows=32):
         for r in range(RANKS):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 recs.append(json.load(f))
-        k1, routes, out, good = 0, {}, [], True
+        k1, routes, greedy, out, good = 0, {}, 0, [], True
         for sched in schedulers:
             ref = one[sched]
             rows = int(ref.ok.size)
@@ -1665,11 +1872,14 @@ def phase_survey_ranks(schedulers=("blevel", "greedy"), stream_rows=32):
                              and chunks == -(-rows // stream_rows)
                              and rec["k1_launches"] == steps > 0
                              and rec["k1_routes"].get("warp", 0)
-                             == rec["k1_launches"])
+                             == rec["k1_launches"]
+                             and rec["greedy_place_launches"]
+                             == (steps if sched == "greedy" else 0))
                 good &= rec["ok"]
                 emit("survey_ranks_rank", scheduler=sched, bucket=grp.label,
                      cluster="32x4", rows=rows, **rec, card=CARD)
                 k1 += rec["k1_launches"]
+                greedy += rec["greedy_place_launches"]
                 for rt, n in rec["k1_routes"].items():
                     routes[rt] = routes.get(rt, 0) + n
                 out.append(dict(scheduler=sched, **{
@@ -1703,8 +1913,8 @@ def phase_survey_ranks(schedulers=("blevel", "greedy"), stream_rows=32):
                     "events/s are not a multi-card speed",
          nccl_across_cards="not checked: one card", card=CARD, ok=True,
          waterfill_launches=k1, waterfill_launch_routes=routes,
-         seconds=time.perf_counter() - t0)
-    return k1, routes
+         greedy_place_launches=greedy, seconds=time.perf_counter() - t0)
+    return k1, routes, greedy
 
 
 # ------------------------------------------- the static simulator, genetic-vec
@@ -3994,26 +4204,27 @@ def main(argv=None):
     smi = phase_env()
     if "build" in phases:
         phase_build()
-    wf = None
+    wf = gp = None
     if "kernel_waterfill" in phases:
         wf = phase_kernel_waterfill()
+    if "kernel_greedy_place" in phases:
+        gp = phase_kernel_greedy_place()
     if "golden" in phases:
         phase_golden()
     if "survey_mini" in phases:
         phase_survey_mini()
     launches = {}
     k1 = []          # (launches, by route) of each of K1's path phases
-    if "survey_agreement" in phases:
-        k1.append(phase_survey_agreement())
-    if "survey_dataset" in phases:
-        k1.append(phase_survey_dataset())
-    if "survey_full_width" in phases:
-        main_path = phase_survey_full_width()
-        k1.append((main_path["count"], main_path["routes"]))
-    if "survey_engine" in phases:
-        k1.append(phase_survey_engine())
-    if "survey_ranks" in phases:
-        k1.append(phase_survey_ranks())
+    greedy = []      # greedy placement's launches of each greedy path phase
+    for phase, run in (("survey_agreement", phase_survey_agreement),
+                       ("survey_dataset", phase_survey_dataset),
+                       ("survey_full_width", phase_survey_full_width),
+                       ("survey_engine", phase_survey_engine),
+                       ("survey_ranks", phase_survey_ranks)):
+        if phase in phases:
+            n, rt, g = run()
+            k1.append((n, rt))
+            greedy.append(g)
     if "static_golden" in phases:
         k1.append(phase_static_golden())
     if "static_full_width" in phases:
@@ -4061,16 +4272,22 @@ def main(argv=None):
         k2_routes = rt if k2_routes is None else {
             r: k2_routes[r] + rt[r] for r in k2_routes}
     if "escape_hatches" in phases:
-        n, rt = phase_escape_hatches()
+        n, rt, g = phase_escape_hatches()
+        greedy.append(g)
         launches["waterfill"] = launches.get("waterfill", 0) + n
         k1_routes = rt if k1_routes is None else {
             r: k1_routes[r] + rt[r] for r in k1_routes}
     if "simlint" in phases:
         phase_simlint()
+    if greedy:
+        launches["greedy_place"] = sum(greedy)
     kernels = []
     for name, res, src, replaces, lib in (
             ("waterfill", wf, "waterfill.cu",
              "src/repro/kernels/waterfill.py:30", False),
+            ("greedy_place", gp, "greedy_place.cu",
+             "none (the reference's placer is a fori_loop under jit, "
+             "src/repro/core/vectorized/scheduling.py:541)", False),
             ("flash_attention", fa, "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:25", True),
             ("ssd", ss, "ssd.cu", "src/repro/kernels/ssd.py:24", False)):
@@ -4105,8 +4322,8 @@ def main(argv=None):
         # every kernel held against its plain version and launched on its
         # path in this run
         checked = {k["name"] for k in kernels}
-        missing = sorted({"waterfill", "flash_attention", "ssd"}
-                         - (checked & set(launches)))
+        missing = sorted({"waterfill", "greedy_place", "flash_attention",
+                          "ssd"} - (checked & set(launches)))
         if missing:
             raise AssertionError(
                 f"the kernels phase needs every kernel's check and path "

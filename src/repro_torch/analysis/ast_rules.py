@@ -8,8 +8,7 @@ carry, reads ``live.any()`` and the results); only the event step runs
 on the card, replayed from a CUDA graph.  "Step code" is therefore
 
 * every function passed by name (or as a lambda) to ``_drive`` or
-  ``_step_into`` — the ``body``, ``cond`` and ``prologue`` of the event
-  loop; an argument may be a conditional expression (both branches
+  ``_step_into`` — the ``body`` and ``cond`` of the event loop; an argument may be a conditional expression (both branches
   count) or a call of a function of the file (the functions nested in
   it, i.e. the closure it returns, count);
 * transitively, every function of the same file that step code calls by

@@ -23,7 +23,7 @@ from .step_checks import Target, observe
 @dataclasses.dataclass(frozen=True)
 class Divergence:
     """First difference between two step op traces."""
-    path: str        # "step", "prologue" (greedy's eager part) or "carry"
+    path: str        # "step" or "carry"
     index: int       # op index in that trace (-1: the carry signature)
     reason: str      # what differs (op, shapes/dtypes, arguments, count)
     left: str
@@ -37,9 +37,8 @@ class Divergence:
 
 def trace_step(fn, *args):
     """``(carry, ops)`` of one event step of ``fn(*args)``: the carry's
-    ``{key: (shape, dtype)}`` and ``{"prologue": [...], "step": [...]}``
-    op records (the step run once on copies of the carry, the call then
-    stopped)."""
+    ``{key: (shape, dtype)}`` and ``{"step": [...]}`` op records (the
+    step run once on copies of the carry, the call then stopped)."""
     obs = observe(Target(name="trace", fn=fn, args=args,
                          argnames=tuple(f"arg{i}" for i in range(len(args))),
                          required_live=frozenset()))
@@ -91,14 +90,13 @@ def diff_traces(fn, args_a, args_b, labels=("A", "B")):
                        str({k: ca.get(k) for k in keys}),
                        str({k: cb.get(k) for k in keys}))
     else:
-        d = (diff_op_traces(ta["prologue"], tb["prologue"], "prologue")
-             or diff_op_traces(ta["step"], tb["step"]))
+        d = diff_op_traces(ta["step"], tb["step"])
     if d is not None:
         return (f"recompile-diff: {la} and {lb} run *different* event "
                 f"steps — each needs its own capture.\n{d.render()}")
     return (f"recompile-diff: {la} and {lb} run identical event steps "
-            f"({len(ta['step'])} ops, {len(ta['prologue'])} in the eager "
-            f"prologue) — the capture count comes from the Python side: a "
-            f"call that ran its step eagerly (step_graph='eager' or a CPU "
-            f"device), one that stopped before its loop, or more simulator "
-            f"calls than the grid's groups (chunks).")
+            f"({len(ta['step'])} ops) — the capture count comes from the "
+            f"Python side: a call that ran its step eagerly "
+            f"(step_graph='eager' or a CPU device), one that stopped before "
+            f"its loop, or more simulator calls than the grid's groups "
+            f"(chunks).")

@@ -8,19 +8,19 @@ from a CUDA graph.  So each target runs one real simulator call on seeded
 random graphs padded to the reference's bucket shapes (padding is inert)
 under a ``TorchDispatchMode`` that sees every ATen op, and ``sim``'s
 private drive hook hands the check the carry and the step before the
-first step runs.  The check runs that step once (greedy's eager
-prologue first) on copies of the carry, then stops the call.  The
-hand-written K1 kernel is launched through ctypes, where the mode cannot
-see it, so its wrapper is recorded as one op from its inputs to its
-output (on the CPU its plain version stands in for it, as one op too).
+first step runs.  The check runs that step once on copies of the
+carry, then stops the call.  The hand-written kernels (K1, greedy's
+placement) are launched through ctypes, where the mode cannot see them,
+so each wrapper is recorded as one op from its inputs to its output (on
+the CPU its plain version stands in for it, as one op too).
 The float64 inside ``_ops.fma32`` (the single rounding of the
 reference's contracted multiply-adds) is reported as suppressed JX103.
 
 * JX101 — a carry entry whose step output differs from the carry in
   shape or dtype (or is missing), a step that fails, or a host read
   inside the step (``aten._local_scalar_dense``, a copy to the CPU):
-  the CUDA graph cannot capture it.  Greedy's prologue is exempt: it
-  runs eagerly before each replay.
+  the CUDA graph cannot capture it.  Greedy's step is held to it like
+  every other: its invocation is captured with the rest.
 * JX102 — a value baked into the captured step: a carry entry whose
   step output is a Python number, or an operand of a step op that is a
   tensor on another device than the carry.
@@ -120,7 +120,7 @@ class _Tracer(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.taint = {}
-        self.phase = "setup"        # "setup" | "prologue" | "step"
+        self.phase = "setup"        # "setup" | "step"
         self.opaque = 0
         self.in_fma = 0
         self.reached = set()
@@ -128,8 +128,8 @@ class _Tracer(TorchDispatchMode):
         self.host_reads = []        # op names read on the host in the step
         self.off_device = []        # (op, operand device) in the step
         self.device = None
-        self.n_ops = {"setup": 0, "prologue": 0, "step": 0}
-        self.records = {"prologue": [], "step": []}   # OpRecords
+        self.n_ops = {"setup": 0, "step": 0}
+        self.records = {"step": []}   # OpRecords
 
     def seed(self, name, t):
         k = _key(t)
@@ -145,7 +145,7 @@ class _Tracer(TorchDispatchMode):
         return out
 
     def record(self, name, inputs, outputs, other=""):
-        """One op from ``inputs`` to ``outputs`` (also the K1 wrapper);
+        """One op from ``inputs`` to ``outputs`` (also a kernel wrapper);
         ``other``: its non-tensor arguments."""
         if self.phase in self.records:
             self.records[self.phase].append(OpRecord(
@@ -197,23 +197,32 @@ class _Tracer(TorchDispatchMode):
 
 @contextlib.contextmanager
 def _opaque_kernels(tracer):
-    """Record each call of K1's wrapper as one op (the mode cannot see a
-    ctypes launch; on the CPU the plain version's rounds are the
-    kernel's stand-in, not the step's)."""
+    """Record each call of a kernel wrapper (K1's, greedy's placement)
+    as one op (the mode cannot see a ctypes launch; on the CPU the plain
+    version's ops, and its host reads, are the kernel's stand-in, not
+    the step's)."""
+    from ..kernels import greedy_place as gk
     from ..kernels import waterfill as wk
-    inner = wk._waterfill
+    inner_wf, inner_gp = wk._waterfill, gk.greedy_place
 
-    def recorded(src, dst, active, caps_up, caps_down, max_rounds=None,
-                 route=None):
+    def opaque(name, fn, inputs, *args, **kwargs):
         tracer.opaque += 1
         try:
-            out = inner(src, dst, active, caps_up, caps_down, max_rounds,
-                        route)
+            out = fn(*args, **kwargs)
         finally:
             tracer.opaque -= 1
-        tracer.record("repro_torch::waterfill",
-                      [src, dst, active, caps_up, caps_down], [out])
+        tracer.record(name, inputs, [out])
         return out
+
+    def waterfill_seen(src, dst, active, caps_up, caps_down,
+                       max_rounds=None, route=None):
+        return opaque("repro_torch::waterfill", inner_wf,
+                      [src, dst, active, caps_up, caps_down], src, dst,
+                      active, caps_up, caps_down, max_rounds, route)
+
+    def greedy_place_seen(*args, **kwargs):
+        return opaque("repro_torch::greedy_place", inner_gp, list(args),
+                      *args, **kwargs)
 
     def fma_seen(a, b, c):
         tracer.in_fma += 1
@@ -223,12 +232,12 @@ def _opaque_kernels(tracer):
             tracer.in_fma -= 1
 
     fma = _sim.fma32
-    wk._waterfill = recorded
+    wk._waterfill, gk.greedy_place = waterfill_seen, greedy_place_seen
     _sim.fma32 = fma_seen
     try:
         yield
     finally:
-        wk._waterfill = inner
+        wk._waterfill, gk.greedy_place = inner_wf, inner_gp
         _sim.fma32 = fma
 
 
@@ -260,16 +269,13 @@ def observe(target: Target) -> Observation:
     _seed_args(tracer, target)
     obs = Observation(carry={}, step_out={}, tracer=tracer)
 
-    def hook(st, live, body, cond, prologue):
+    def hook(st, live, body, cond):
         obs.carry = {k: (tuple(v.shape), v.dtype, v.device)
                      for k, v in st.items()}
         tracer.device = live.device
         work = {k: v.clone() for k, v in st.items()}
         lv = live.clone()
         try:
-            if prologue is not None:
-                tracer.phase = "prologue"
-                _sim._step_into(work, lv, prologue)
             tracer.phase = "step"
 
             def body_seen(s, l):

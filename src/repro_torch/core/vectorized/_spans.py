@@ -4,7 +4,8 @@ spends its time, on the host's clock, always on.
 ``GRAPH_EVENTS`` holds the process-wide odometers of the event loops:
 ``calls`` (simulator calls), ``captures`` (one per call whose step ran
 from a CUDA graph), ``replays``, ``polls`` (the host's reads of "any
-row live") and ``place_iters`` (the greedy placer's loop iterations);
+row live") and ``place_iters`` (the greedy placer's loop iterations,
+counted on the device and read once a simulator call);
 ``engine.capture_counter`` reads them, and the span totals, as scoped
 deltas.
 
@@ -18,7 +19,7 @@ Beside them every runner call is one tree of spans::
     │ ├ loop           every step and every poll
     │ │ ├ step0        eager step 0
     │ │ ├ capture      the CUDA graph's capture
-    │ │ └ prologue, place, replay, poll, step    (summed)
+    │ │ └ place, replay, poll, step    (summed)
     │ └ free           the graph and its pool released
     └ results_out      copy to the host, reshape, the ``ok`` check
 
@@ -27,7 +28,8 @@ a call of its own).  A span that runs once is one record, a dict:
 ``name``, ``start`` and ``end`` (``time.perf_counter()`` seconds, the
 clock of a caller's own timings), ``call`` (the id of its call), ``id``
 and ``parent`` (the enclosing span's id, ``None`` at the root).  The
-spans that run per step or per poll (``prologue``, ``place`` inside it,
+spans that run per step or per poll (``place`` around greedy's
+placement where the step runs eagerly, never inside a captured step,
 ``replay``, ``poll``, and ``step`` for an eager step past step 0) are
 summed into their ``drive`` record's ``sums``: ``{name: [count,
 seconds, largest]}``; the drive record's ``counters`` are the
@@ -257,8 +259,8 @@ class _Summed:
         return False
 
 
-PROLOGUE, PLACE, REPLAY, POLL, STEP = (
-    _Summed(n) for n in ("prologue", "place", "replay", "poll", "step"))
+PLACE, REPLAY, POLL, STEP = (
+    _Summed(n) for n in ("place", "replay", "poll", "step"))
 
 
 def span_log(t0=-math.inf, t1=math.inf):

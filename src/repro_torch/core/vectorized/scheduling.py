@@ -14,7 +14,10 @@ become Python loops over tensor operations on all rows at once.
   t=0 estimates: ``blevel``, ``tlevel``, ``mcp`` (list schedulers over
   an earliest-start timeline), ``etf`` (earliest-finish placer) and
   ``random`` (a counter hash of ``(seed, task)``; no RNG state);
-* ``"dynamic"`` — ``greedy`` runs at every MSD-gated invocation.
+* ``"dynamic"`` — ``greedy`` runs at every MSD-gated invocation; inside
+  the dynamic simulator's step its placement is one call,
+  ``greedy_place_plain`` here and a kernel on the card
+  (``repro_torch.kernels.greedy_place``).
 
 Decisions equal the reference's exactly: sorts are stable (ties go to
 the smaller index), ``argmin``/``argmax`` return the first extreme, the
@@ -567,18 +570,29 @@ def bucket_transfer_costs(bspec, size_now, missing_ow, table=None):
     is deterministic and equals the reference's sequential scatter-add
     exactly."""
     g = graph_view(bspec)
-    R, T, E = g.R, g.T, g.E
-    W = missing_ow.shape[-1]
-    out = torch.zeros(R, T, W, dtype=torch.float32, device=g.device)
-    if E == 0:
-        return out
+    if g.E == 0:
+        W = missing_ow.shape[-1]
+        return torch.zeros(g.R, g.T, W, dtype=torch.float32,
+                           device=g.device)
     if table is None:
         table = edge_table(g)
-    miss_e = missing_ow.gather(1, g.e_obj[:, :, None].expand(R, E, W))
-    contrib = torch.where(g.edge_valid[:, :, None],
-                          take(size_now.float(), g.e_obj)[:, :, None]
-                          * miss_e, 0.0)                         # [R, E, W]
-    for k in range(table.shape[2]):
+    return table_transfer_costs(table, g.e_obj, size_now, missing_ow)
+
+
+def table_transfer_costs(table, e_obj, size_now, missing_ow):
+    """``bucket_transfer_costs`` from an ``edge_table`` (``i64[R, T,
+    D]``) and the edges' objects (``i64[R, E]``): ``0 + size * missing``
+    over each task's table entries in order.  The table lists valid
+    edges only, so an invalid edge's term is never read."""
+    R, T, D = table.shape
+    E = e_obj.shape[1]
+    W = missing_ow.shape[-1]
+    out = torch.zeros(R, T, W, dtype=torch.float32, device=table.device)
+    if E == 0:
+        return out
+    miss_e = missing_ow.gather(1, e_obj[:, :, None].expand(R, E, W))
+    contrib = take(size_now.float(), e_obj)[:, :, None] * miss_e  # [R,E,W]
+    for k in range(D):
         ids = table[:, :, k]
         v = contrib.gather(1, ids.clamp(min=0)[:, :, None].expand(R, T, W))
         out = out + torch.where((ids >= 0)[:, :, None], v, 0.0)
@@ -607,33 +621,67 @@ def make_bucket_greedy_placer(n_workers, cores):
 
     def place(bspec, ready_unassigned, cost_tw, load0, cores=None):
         g = graph_view(bspec)
-        R, T, dev = g.R, g.T, g.device
-        cores_t = _cores_arg(cores, cores_default, R, dev)
-        pw = torch.full((R, T + 1), -1, dtype=torch.int64, device=dev)
-        n = int(ready_unassigned.sum(dim=1).amax()) if R else 0
+        cores_t = _cores_arg(cores, cores_default, g.R, g.device)
+        n = int(ready_unassigned.sum(dim=1).amax()) if g.R else 0
         GRAPH_EVENTS["place_iters"] += n
-        if n == 0:
-            return pw[:, :T]
-        t_ids = torch.arange(T, device=dev)
-        order = torch.sort(torch.where(ready_unassigned, t_ids, T),
-                           dim=1).values[:, :n]
-        load = load0.clone().long()
-        rows = torch.arange(R, device=dev)
-        for k in range(n):
-            t = order[:, k]
-            act = t < T
-            tc = t.clamp(max=T - 1)
-            elig = cores_t >= g.cpus[rows, tc][:, None]
-            c = torch.where(elig, cost_tw[rows, tc], INF)
-            cand = c == c.amin(dim=1, keepdim=True)
-            ld = torch.where(cand, load, BIG)
-            cand = cand & (ld == ld.amin(dim=1, keepdim=True))
-            w = cand.int().argmax(dim=1)           # first = smallest id
-            pw[rows, t] = torch.where(act, w, -1)
-            load[rows, w] += act.long()
-        return pw[:, :T]
+        return _greedy_loop(ready_unassigned, cost_tw, g.cpus, cores_t,
+                            load0, n)
 
     return place
+
+
+def _greedy_loop(placing, cost_tw, cpus, cores, load0, n):
+    """The sequential placement of ``make_bucket_greedy_placer``: the
+    ``placing`` tasks of each row in id order, ``n`` of them at most (the
+    largest count over the rows, read on the host: the loop runs over
+    the tasks compacted per row)."""
+    R, T = placing.shape
+    dev = placing.device
+    pw = torch.full((R, T + 1), -1, dtype=torch.int64, device=dev)
+    if n == 0 or T == 0:
+        return pw[:, :T]
+    t_ids = torch.arange(T, device=dev)
+    order = torch.sort(torch.where(placing, t_ids, T), dim=1).values[:, :n]
+    load = load0.clone().long()
+    rows = torch.arange(R, device=dev)
+    for k in range(n):
+        t = order[:, k]
+        tc = t.clamp(max=T - 1)
+        act = (t < T) & placing[rows, tc]
+        elig = cores >= cpus[rows, tc][:, None]
+        c = torch.where(elig, cost_tw[rows, tc], INF)
+        cand = c == c.amin(dim=1, keepdim=True)
+        ld = torch.where(cand, load, BIG)
+        cand = cand & (ld == ld.amin(dim=1, keepdim=True))
+        w = cand.int().argmax(dim=1)           # first = smallest id
+        pw[rows, torch.where(act, t, T)] = torch.where(act, w, -1)
+        load[rows, w] += act.long()
+    return pw[:, :T]
+
+
+def greedy_place_plain(placing, table, e_obj, size_now, missing, cpus,
+                       cores, load0, tally):
+    """The plain version of greedy's placement in the dynamic
+    simulator's event step (``kernels.greedy_place``'s kernel computes
+    the same, bit for bit): ``bucket_transfer_costs`` of the ``placing``
+    tasks (``bool[R, T]``) from the edge table (``i64[R, T, D]``), the
+    edges' objects (``i64[R, E]``), ``size_now`` (``f32[R, O]``) and
+    ``missing`` (``bool[R, O, W]``), then ``make_bucket_greedy_placer``'s
+    loop over them with ``cpus`` (``i64[R, T]``), ``cores`` and ``load0``
+    (``i64[R, W]``).  Returns ``i64[R, T]``: the proposed worker of each
+    placing task, -1 elsewhere.
+
+    The placer's loop length, the largest placing count over the rows,
+    is read on the host (it sets the loop's length, and no row placing
+    returns at once) and added to ``tally[0]`` (an int64 counter)."""
+    R, T = placing.shape
+    n = int(placing.sum(dim=1).amax()) if R and T else 0
+    tally[0] += n
+    if n == 0:
+        return torch.full((R, T), -1, dtype=torch.int64,
+                          device=placing.device)
+    cost_tw = table_transfer_costs(table, e_obj, size_now, missing)
+    return _greedy_loop(placing, cost_tw, cpus, cores, load0, n)
 
 
 def make_greedy_placer(spec, n_workers, cores, *, device="cuda"):

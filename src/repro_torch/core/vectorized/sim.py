@@ -19,8 +19,8 @@ carry keeps its addresses and, on a card, each simulator call captures
 one step in a CUDA graph and replays it for every later step
 (``step_graph``; the counterpart of the reference's one compiled
 program): once captured, a step costs the host one launch.  ``greedy``
-places tasks in a loop whose length the host reads, so its placement
-prologue runs eagerly before each replay.
+places tasks on the device too (``kernels.greedy_place``: one kernel, no
+host read), so its whole step replays from the graph as well.
 
 Semantics are the reference's: by default flow slots on for ``maxmin``
 and none for ``simple``, the ready frontiers on, and its per-edge escape
@@ -58,6 +58,7 @@ so two runs on the card give bitwise the same result.
 """
 from __future__ import annotations
 
+import contextlib
 import typing
 import warnings
 
@@ -67,11 +68,10 @@ import torch
 from ...device import resolve_device
 from ._ops import (NEG, as_rows, fma32, scatter_count, scatter_max,
                    scatter_min, scatter_or, take)
-from ._spans import (GRAPH_EVENTS, PLACE, POLL, PROLOGUE, REPLAY, STEP,
-                     drive, prepared, span)
+from ._spans import (GRAPH_EVENTS, PLACE, POLL, REPLAY, STEP, drive,
+                     prepared, span)
 from .scheduling import (VEC_SCHEDULERS, _cores_arg, _resolve_cores,
-                         bucket_blevel, bucket_transfer_costs, edge_table,
-                         graph_view, make_bucket_greedy_placer,
+                         bucket_blevel, edge_table, graph_view,
                          make_bucket_scheduler, rank_priorities)
 from .specs import (as_bucketed, bucket_shape, encode_graph,
                     frontier_caps_for, pad_spec, pad_to, spec_rows,
@@ -440,13 +440,15 @@ def _resolve_step_graph(step_graph: str, device) -> bool:
 
 
 # a private hook of the step checks (``repro_torch.analysis``): when
-# set, ``_drive`` hands it ``(st, live, body, cond, prologue)`` once per
-# call, before the first step
+# set, ``_drive`` hands it ``(st, live, body, cond)`` once per call,
+# before the first step
 _DRIVE_OBSERVER = None
 
 # ``GRAPH_EVENTS`` (``_spans``): the process-wide odometers of the event
 # loops (``calls``, ``captures``, ``replays``, ``polls``,
-# ``place_iters``), read as scoped deltas by ``engine.capture_counter``.
+# ``place_iters``), read as scoped deltas by ``engine.capture_counter``;
+# a step's own device counters (``place_iters``) reach them through
+# ``_drive``'s ``tallies``, read once a call.
 # Beside them every runner call leaves one tree of spans (``grid_call``
 # down to ``_drive``'s step 0, capture, replays and polls) in
 # ``_spans.LOG``: timestamps and sums always on, ``record_function``
@@ -457,23 +459,26 @@ def _capture(step, device):
     """Record one call of ``step`` into a CUDA graph on ``device``
     (``torch.cuda.graph``: a side stream and a private memory pool) and
     return ``(replay, free)``; ``free`` releases the graph and its pool.
-    The capture runs nothing, so the K1 launches it recorded are taken
-    off ``LAUNCHES`` and every replay adds them back: a graph run counts
-    the launches an eager run of the same call counts.  A capture that
-    fails raises."""
+    The capture runs nothing, so the kernel launches it recorded (K1's
+    and greedy's placement) are taken off their ``LAUNCHES`` and every
+    replay adds them back: a graph run counts the launches an eager run
+    of the same call counts.  A capture that fails raises."""
     from ...kernels._launch import on_device
-    from ...kernels.waterfill import LAUNCHES
-    mark = LAUNCHES.mark()
+    from ...kernels.greedy_place import LAUNCHES as PLACE_LAUNCHES
+    from ...kernels.waterfill import LAUNCHES as WATERFILL_LAUNCHES
+    counters = (WATERFILL_LAUNCHES, PLACE_LAUNCHES)
+    marks = [c.mark() for c in counters]
     graph = torch.cuda.CUDAGraph()
     with on_device(device), torch.cuda.graph(graph):
         step()
-    recorded = LAUNCHES.take_since(mark)
+    recorded = [c.take_since(m) for c, m in zip(counters, marks)]
     GRAPH_EVENTS["captures"] += 1
 
     def replay():
         with on_device(device):
             graph.replay()
-        LAUNCHES.add_recorded(recorded)
+        for c, r in zip(counters, recorded):
+            c.add_recorded(r)
         GRAPH_EVENTS["replays"] += 1
 
     return replay, graph.reset
@@ -497,7 +502,7 @@ def _step_into(st, live, fn, cond=None):
 
 
 def _drive(st, body, cond, check_every, graph=False, device=None,
-           prologue=None):
+           tallies=None):
     """Advance every row until none is live and return the carry.
     ``body(st, live)`` is one event step of all rows, run by
     ``_step_into``: a row that is no longer live is frozen, so its
@@ -508,26 +513,24 @@ def _drive(st, body, cond, check_every, graph=False, device=None,
     runs eagerly (a real step, and the warm-up that loads every kernel
     before capture); then one step is captured on the carry into a CUDA
     graph on ``device`` and replayed for every later step, and the graph
-    and its pool are freed when the loop ends.  ``prologue(st, live)``,
-    when given, is a first part of the step that reads the host (greedy's
-    placement): it runs eagerly into the carry before each replay, and
-    ``body`` is then the rest of the step (eagerly the two run as one).
+    and its pool are freed when the loop ends.  ``tallies`` (``{name:
+    tensor}``) are counters the step adds to on the device; each is read
+    once after the loop and added to ``GRAPH_EVENTS[name]``.
 
     The call is one ``drive`` span (``_spans``): ``loop`` around every
     step and poll, once-records ``step0``, ``capture`` and ``free``, and
-    the per-step spans summed into the drive record (``prologue`` and
-    ``replay`` each replayed step, ``step`` each later eager step,
-    ``poll`` each read of ``live``, so ``polls`` = steps /
-    ``check_every`` + 1).  The spans take timestamps around work that
-    is there; none sits inside the captured step."""
-    full = body if prologue is None \
-        else (lambda st, live: body(prologue(st, live), live))
+    the per-step spans summed into the drive record (``replay`` each
+    replayed step, ``step`` each later eager step, ``poll`` each read of
+    ``live``, so ``polls`` = steps / ``check_every`` + 1).  The spans
+    take timestamps around work that is there; only greedy's ``place``
+    sits inside the step, and it times the step's eager runs and the
+    capture's recording, never a replay."""
     with drive():
         # the carry's own tensors
         st = {k: v.clone() for k, v in st.items()}
         live = cond(st)
         if _DRIVE_OBSERVER is not None:
-            _DRIVE_OBSERVER(st, live, body, cond, prologue)
+            _DRIVE_OBSERVER(st, live, body, cond)
         GRAPH_EVENTS["calls"] += 1
         replay = free = None
         try:
@@ -542,14 +545,11 @@ def _drive(st, body, cond, check_every, graph=False, device=None,
                             break
                     if step == 0:
                         with span("step0"):
-                            _step_into(st, live, full, cond)
+                            _step_into(st, live, body, cond)
                     elif not graph:
                         with STEP:
-                            _step_into(st, live, full, cond)
+                            _step_into(st, live, body, cond)
                     else:
-                        if prologue is not None:
-                            with PROLOGUE:
-                                _step_into(st, live, prologue)
                         if replay is None:
                             with span("capture"):
                                 replay, free = _capture(
@@ -562,6 +562,8 @@ def _drive(st, body, cond, check_every, graph=False, device=None,
             if free is not None:
                 with span("free"):
                     free()
+        for name, t in (tallies or {}).items():
+            GRAPH_EVENTS[name] += int(t)
     return st
 
 
@@ -993,10 +995,10 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
     ``step_graph`` (``_resolve_step_graph``): ``"auto"`` replays each
     call's event step from a CUDA graph on a card and runs it eagerly on
     the CPU; ``"graph"`` requires the graph, ``"eager"`` never uses one.
-    A static schedule's whole step is captured; ``greedy`` places tasks
-    in a loop whose length the host reads, so its ``apply_due -> invoke
-    -> apply_due`` prologue runs eagerly before each replay of the
-    rest."""
+    The whole step is captured, ``greedy``'s invocation with it: its
+    placement is one kernel (``kernels.greedy_place``) on the card, and
+    its plain version on the CPU, which reads the host except in a step
+    run as if from a graph."""
     if scheduler not in VEC_SCHEDULERS:
         raise KeyError(f"unknown vectorized scheduler {scheduler!r} "
                        f"(have {sorted(VEC_SCHEDULERS)})")
@@ -1014,12 +1016,11 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
     S = W * DOWNLOAD_SLOTS
     dynamic_sched = VEC_SCHEDULERS[scheduler] == "dynamic"
     if dynamic_sched:
+        from ...kernels import greedy_place as placement
         static_schedule = None
-        greedy_place = make_bucket_greedy_placer(W, cores_default)
     else:
         static_schedule = make_bucket_scheduler(W, cores_default, scheduler,
                                                 max_cores)
-        greedy_place = None
 
     @prepared
     def run(bspec, est_durations, est_sizes, msd=0.0, decision_delay=0.0,
@@ -1071,7 +1072,12 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             p_worker0 = torch.full((R, T), -1, dtype=torch.int64, device=dev)
             p_prio0 = torch.zeros(R, T, device=dev)
             p_time0 = torch.full((R, T), INF, device=dev)
-            table = edge_table(g) if E else None
+            # the placement's fixed inputs, contiguous once a call, and
+            # its device counter of placer iterations (and scratch)
+            place_in = (edge_table(g).contiguous(), e_obj.contiguous(),
+                        g.cpus.contiguous(), cores_t.contiguous())
+            tally = torch.zeros(3, dtype=torch.int64, device=dev)
+            place_span = contextlib.nullcontext() if graph else PLACE
         else:
             # static schedule == the single invocation at t=0, computed
             # from pure estimates; it reaches workers after the delay
@@ -1160,48 +1166,44 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             ready_t = inputs_produced(st)
             ready_un = (ready_t & (st["aw"] < 0) & (st["pw"] < 0)
                         & ~st["t_done"])
-            # only rows that invoke now (and are live) place anything; the
-            # placements of the others are discarded, so skip them
+            # only rows that invoke now (and are live) place anything
             placing = ready_un & (due & live)[:, None]
-            # greedy's prologue reads the host by design: it runs eagerly
-            # before each replay of the captured rest of the step
-            if bool(placing.any()):  # simlint: disable=PY201,PY205
-                if E == 0:
-                    cost_tw = zf(R, T, W)
+            prod = take(st["t_done"], producer)                  # [R, O]
+            size_now = torch.where(prod, sizes_true, est_size)
+            if E == 0:
+                missing = zb(R, O, W)
+            else:
+                prod_w = take(st["aw"], producer)
+                if carried_keys:
+                    # per-key views straight from the carried key bools
+                    # and the slot pool
+                    done_ow = st["key_done"]
+                    sk = take(e_obj, st["slot_edge"].clamp(min=0)) * W \
+                        + slot_dst
+                    dl_ow = scatter_or(F, sk, st["slot_edge"] >= 0)
                 else:
-                    prod = take(st["t_done"], producer)          # [R, O]
-                    prod_w = take(st["aw"], producer)
-                    if carried_keys:
-                        # per-key views straight from the carried key
-                        # bools and the slot pool
-                        done_ow = st["key_done"]
-                        sk = take(e_obj, st["slot_edge"].clamp(min=0)) * W \
-                            + slot_dst
-                        dl_ow = scatter_or(F, sk, st["slot_edge"] >= 0)
-                    else:
-                        key_e = edge_views(st)[2]
-                        done_ow = scatter_or(F, key_e, st["f_done"])
-                        dl_ow = scatter_or(F, key_e,
-                                           st["f_started"] & ~st["f_done"])
-                    local_ow = (prod_w[:, :, None] == w_ids) \
-                        & prod[:, :, None]
-                    missing = ~(local_ow | done_ow.view(R, O, W)
-                                | dl_ow.view(R, O, W))
-                    size_now = torch.where(prod, sizes_true, est_size)
-                    cost_tw = bucket_transfer_costs(g, size_now, missing,
-                                                    table)
-                queued = (((st["aw"] >= 0) | (st["pw"] >= 0))
-                          & ~st["t_started"] & ~st["t_done"])
-                qworker = torch.where(st["aw"] >= 0, st["aw"], st["pw"])
-                load0 = scatter_count(W, qworker.clamp(min=0), queued)
-                with PLACE:
-                    new_pw = greedy_place(g, placing, cost_tw, load0,
-                                          cores_t)
-                newly = due[:, None] & (new_pw >= 0)
-                st["pw"] = torch.where(newly, new_pw, st["pw"])
-                st["pp"] = torch.where(newly, greedy_prio, st["pp"])
-                st["pt"] = torch.where(newly, (st["now"] + delay)[:, None],
-                                       st["pt"])
+                    key_e = edge_views(st)[2]
+                    done_ow = scatter_or(F, key_e, st["f_done"])
+                    dl_ow = scatter_or(F, key_e,
+                                       st["f_started"] & ~st["f_done"])
+                local_ow = (prod_w[:, :, None] == w_ids) & prod[:, :, None]
+                missing = ~(local_ow | done_ow.view(R, O, W)
+                            | dl_ow.view(R, O, W))
+            queued = (((st["aw"] >= 0) | (st["pw"] >= 0))
+                      & ~st["t_started"] & ~st["t_done"])
+            qworker = torch.where(st["aw"] >= 0, st["aw"], st["pw"])
+            load0 = scatter_count(W, qworker.clamp(min=0), queued)
+            table, e_obj_c, cpus_c, cores_c = place_in
+            # timed on eager steps only: no span sits inside a capture
+            with place_span:
+                new_pw = placement.greedy_place(
+                    placing, table, e_obj_c, size_now, missing, cpus_c,
+                    cores_c, load0, tally)
+            newly = due[:, None] & (new_pw >= 0)
+            st["pw"] = torch.where(newly, new_pw, st["pw"])
+            st["pp"] = torch.where(newly, greedy_prio, st["pp"])
+            st["pt"] = torch.where(newly, (st["now"] + delay)[:, None],
+                                   st["pt"])
             st["events"] = st["events"] & ~due
             st["last"] = torch.where(due, st["now"], st["last"])
             return st
@@ -1338,20 +1340,18 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             return st, rem, done_now
 
         # -------------------------------------------------------- body
-        def prologue(st, live):
-            """Pending assignments that fall due, and (greedy) the
-            scheduler invocation: the part of the step that reads the
-            host."""
+        def invoke_due(st, live):
+            """Greedy's part of the step: pending assignments that fall
+            due, the scheduler invocation, and what it made due at once
+            (``decision_delay == 0``)."""
             st = apply_due(dict(st))
             st = invoke(st, live)
-            return apply_due(st)             # decision_delay == 0
+            return apply_due(st)
 
         def body(st, live):
-            """The frontier step after ``prologue`` (greedy), or all of
-            it."""
-            st = dict(st)
-            if not dynamic_sched:
-                st = apply_due(st)
+            """The frontier step."""
+            st = (invoke_due(st, live) if dynamic_sched
+                  else apply_due(dict(st)))
             # fused O(E) detection pass: new (producer-done,
             # consumer-assigned) pairs become flow candidates (dedup rep
             # pinned per key) and satisfied edges
@@ -1415,11 +1415,9 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             return st
 
         def body_edges(st, live):
-            """The per-edge step (``frontier=False``) after ``prologue``
-            (greedy), or all of it."""
-            st = dict(st)
-            if not dynamic_sched:
-                st = apply_due(st)
+            """The per-edge step (``frontier=False``)."""
+            st = (invoke_due(st, live) if dynamic_sched
+                  else apply_due(dict(st)))
             if E > 0:
                 st = start_flows_edges(st)
             st = start_tasks_edges(st)
@@ -1437,7 +1435,7 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
 
         st = _drive(st, body if use_frontier else body_edges,
                     _live(steps_cap, use_frontier), check_every, graph, dev,
-                    prologue if dynamic_sched else None)
+                    {"place_iters": tally[0]} if dynamic_sched else None)
         if carried_keys:
             transferred = st["transferred"]
         else:

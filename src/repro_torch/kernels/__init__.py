@@ -11,12 +11,17 @@ version.  Sources live in ``csrc/``; ``_build`` compiles them with
 * ``ssd`` — K3, the Mamba-2 SSD chunked scan as three chunk-parallel
   kernels, ``ssd_chunk_state``, ``ssd_state_pass`` and
   ``ssd_chunk_scan`` (replaces ``repro/kernels/ssd.py::_ssd_kernel``).
+* ``greedy_place`` — greedy's placement in the dynamic simulator's
+  event step, transfer costs and the sequential choice in one kernel
+  (replaces no Pallas kernel: the reference's ``fori_loop`` under
+  ``jit``); call ``repro_torch.kernels.greedy_place.greedy_place``.
 
 ``ops.attention`` and ``ops.ssd`` dispatch K2 and K3 by device; ``ref``
 holds their plain versions."""
 from .flash_attention import LAUNCHES as FLASH_ATTENTION_LAUNCHES
+from .greedy_place import LAUNCHES as GREEDY_PLACE_LAUNCHES
 from .ssd import LAUNCHES as SSD_LAUNCHES
 from .waterfill import LAUNCHES as WATERFILL_LAUNCHES
 
-__all__ = ["FLASH_ATTENTION_LAUNCHES", "SSD_LAUNCHES",
-           "WATERFILL_LAUNCHES"]
+__all__ = ["FLASH_ATTENTION_LAUNCHES", "GREEDY_PLACE_LAUNCHES",
+           "SSD_LAUNCHES", "WATERFILL_LAUNCHES"]

@@ -169,12 +169,19 @@ def test_host_read_inside_the_step_is_counted():
 
 
 def test_greedy_prologue_reads_are_exempt_and_the_step_has_none():
+    # greedy's whole step is held to JX101: no eager prologue is left
+    # to exempt (the test keeps the name it had while one was), and its
+    # placement is one op (the kernel's wrapper)
     stats = {}
     targets = [t for t in default_targets(device="cpu")
                if t.name == "make_bucket_dynamic_simulator[greedy,maxmin]"]
+    from repro_torch.analysis.step_checks import observe
+    obs = observe(targets[0])
     assert active(check_all(targets, stats=stats)) == []
     s = stats["make_bucket_dynamic_simulator[greedy,maxmin]"]
-    assert s["host_reads"] == 0 and s["ops"]["prologue"] > 0
+    assert s["host_reads"] == 0 and "prologue" not in s["ops"]
+    ops = [r.op for r in obs.tracer.records["step"]]
+    assert ops.count("repro_torch::greedy_place") == 1
 
 
 # ------------------------------------------------------------ the tree

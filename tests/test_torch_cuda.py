@@ -105,6 +105,66 @@ def waterfill_plain_of(src, dst, active, caps, max_rounds=None):
                  caps, caps, max_rounds)
 
 
+# greedy's placement kernel: (graphs, rows, workers, place_inputs options)
+PLACE_CASES = {
+    "t160_r360_w16": ("T160", 360, 16, {}),
+    "t512_r240_w16": ("T512", 240, 16, {}),
+    "t512_r1800_w32": ("T512", 1800, 32, {}),
+    "t512_w40_stride": ("T512", 240, 40, {}),
+    "ties": ("T160", 360, 16, dict(ties=True)),
+    "fit_none": ("T160", 96, 16, dict(fit_none=True)),
+    "nothing_placing": ("T512", 96, 16, dict(p_place=0.0)),
+    "d0": ("T160", 96, 16, dict(ties=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLACE_CASES))
+def test_greedy_place_kernel_equals_plain_version_bitwise(dev, case):
+    """The kernel's proposed workers and placer-iteration tally equal
+    the plain version's on the card, bit for bit; a second launch adds
+    the same count again (its scratch was left at 0).  The T160 rows
+    hold cybershake's 80-input task, placing in every other row."""
+    import test_torch_greedy_place as tg
+    from repro_torch.core.vectorized.scheduling import greedy_place_plain
+    from repro_torch.kernels.greedy_place import greedy_place
+    bucket, R, W, kw = PLACE_CASES[case]
+    g, args = tg.place_inputs(*getattr(tg, bucket), R, W, seed=len(case),
+                              device=dev, **kw)
+    args = list(args)
+    if case == "d0":
+        args[1] = args[1][:, :, :0].contiguous()
+    if bucket == "T160":
+        assert (args[1] >= 0).sum(dim=2).amax() == 80 or case == "d0"
+    want_tally = torch.zeros(3, dtype=torch.int64, device=dev)
+    want = greedy_place_plain(*args[:8], want_tally)
+    got = greedy_place(*args)
+    again = greedy_place(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(again, want)
+    n = int(want_tally[0])
+    assert args[8].tolist() == [2 * n, 0, 0]
+    assert n == int(args[0].sum(dim=1).amax())
+
+
+def test_greedy_place_counts_launches_and_checks_inputs(dev):
+    import test_torch_greedy_place as tg
+    from repro_torch.kernels import GREEDY_PLACE_LAUNCHES
+    from repro_torch.kernels.greedy_place import greedy_place
+    _, args = tg.place_inputs(*tg.T160, 8, 16, seed=2, device=dev)
+    before = GREEDY_PLACE_LAUNCHES.count
+    greedy_place(*args)
+    assert GREEDY_PLACE_LAUNCHES.count == before + 1
+    bad = list(args)
+    bad[7] = args[7].int()
+    with pytest.raises(TypeError, match="load0"):
+        greedy_place(*bad)
+    _, wide = tg.place_inputs(*tg.T160, 2, 513, seed=2, device=dev)
+    with pytest.raises(ValueError, match="exceed"):
+        greedy_place(*wide)
+    assert GREEDY_PLACE_LAUNCHES.count == before + 1
+
+
 @pytest.mark.parametrize("route", ["warp", "block"])
 @pytest.mark.parametrize("W", [1, 8, 16, 32])
 def test_each_waterfill_route_equals_plain_version_bitwise(dev, route, W):
@@ -230,16 +290,22 @@ def test_static_simulator_through_the_kernel_equals_the_plain_version(dev):
 
 def _step_graph_runs(run, modes=("eager", "graph")):
     """``{mode: (result, K1 launches, capture_counter)}`` of ``run(mode)``
-    with the event step eager and replayed from a CUDA graph."""
+    with the event step eager and replayed from a CUDA graph; the
+    greedy placement kernel's launches of each mode land in
+    ``_step_graph_runs.placements[mode]``."""
     from repro_torch.core.vectorized import capture_counter
-    from repro_torch.kernels import WATERFILL_LAUNCHES
+    from repro_torch.kernels import (GREEDY_PLACE_LAUNCHES,
+                                     WATERFILL_LAUNCHES)
     out = {}
+    _step_graph_runs.placements = {}
     for mode in modes:
         WATERFILL_LAUNCHES.reset()
+        GREEDY_PLACE_LAUNCHES.reset()
         with capture_counter() as cc:
             res = run(mode)
         torch.cuda.synchronize()
         out[mode] = (res, WATERFILL_LAUNCHES.count, cc)
+        _step_graph_runs.placements[mode] = GREEDY_PLACE_LAUNCHES.count
     return out
 
 
@@ -248,9 +314,11 @@ def _step_graph_runs(run, modes=("eager", "graph")):
 def test_step_graph_equals_eager_bitwise_with_one_capture(dev, sched,
                                                           netmodel):
     """The dynamic simulator with its event step replayed from a CUDA
-    graph (greedy: the placement prologue eager, the rest replayed):
-    every field bitwise the eager run's, one capture per simulator call
-    (one per chunk when streamed), and as many K1 launches."""
+    graph (greedy's placement kernel inside it, no prologue): every
+    field bitwise the eager run's, one capture per simulator call (one
+    per chunk when streamed), as many K1 launches, and for greedy as
+    many placement launches, one a step, and as many placer
+    iterations."""
     from repro_torch.core import MiB
     from repro_torch.core.graphs import encode_graph_batch, survey_names
     from repro_torch.core.vectorized import make_grid_runner
@@ -275,6 +343,15 @@ def test_step_graph_equals_eager_bitwise_with_one_capture(dev, sched,
         assert c_graph.replays > 0
         assert n_graph == n_eager
         assert (n_graph > 0) == (netmodel == "maxmin")
+        assert "prologue" not in c_graph.spans
+        place = _step_graph_runs.placements
+        assert place["graph"] == place["eager"]
+        assert c_graph.place_iters == c_eager.place_iters
+        if sched == "greedy":
+            assert place["graph"] == c_graph.calls + c_graph.replays > 0
+            assert c_graph.place_iters > 0
+        else:
+            assert place["graph"] == 0 == c_graph.place_iters
 
 
 def test_static_step_graph_equals_eager_bitwise(dev):
@@ -328,10 +405,12 @@ def test_step_graph_auto_captures_on_the_card(dev):
 @pytest.mark.parametrize("sched", ["blevel", "greedy"])
 def test_spans_of_a_runner_call_on_the_card(dev, sched):
     """The span record of one runner call replayed from a CUDA graph:
-    eager step 0, one capture, one replay a later step (greedy: its
-    eager prologue before each), the graph freed, the per-step spans
-    inside the loop, and the schedule's stream time from its CUDA events
-    once the call's results are on the host."""
+    eager step 0, one capture, one replay a later step (greedy too: no
+    prologue, and no ``place`` span inside the captured step), the graph
+    freed, the per-step spans inside the loop, the
+    schedule's stream time from its CUDA events once the call's results
+    are on the host, and greedy's placer iterations, counted on the
+    card, equal to the plain version's count on the same rows."""
     import time
     from repro_torch.core import MiB
     from repro_torch.core.graphs import encode_graph_batch, survey_names
@@ -362,15 +441,21 @@ def test_spans_of_a_runner_call_on_the_card(dev, sched):
     steps = c["replays"] + 1
     assert c["polls"] == d["sums"]["poll"][0] == steps // 16 + 1
     assert steps % 16 == 0 and int(res.n_steps.max()) <= steps
+    assert "prologue" not in d["sums"] and "place" not in d["sums"]
     if sched == "greedy":
-        assert d["sums"]["prologue"][0] == c["replays"]
         assert c["place_iters"] == cc.place_iters > 0
+        cpu = make_grid_runner([encoded[n] for n in grp.names], sched, 8,
+                               [4] * 8, shape=grp.shape, batch=grp.batch,
+                               device="cpu")
+        with capture_counter() as plain:
+            cpu(points)
+        assert c["place_iters"] == plain.place_iters
     else:
-        assert "prologue" not in d["sums"] and c["place_iters"] == 0
+        assert c["place_iters"] == 0
     loop = names["loop"]
     inside = sum(names[n]["end"] - names[n]["start"]
                  for n in ("step0", "capture")) + sum(
-        d["sums"].get(n, (0, 0.0))[1] for n in ("prologue", "replay", "poll"))
+        d["sums"].get(n, (0, 0.0))[1] for n in ("replay", "poll"))
     assert inside <= loop["end"] - loop["start"]
     assert 0.0 < names["schedule"]["device_s"] < 60.0
 

@@ -234,7 +234,7 @@ def test_cpu_runs_capture_nothing():
 # ------------------------------------ the in-place step and the graph path
 
 def rebuilt_carry_drive(st, body, cond, check_every, graph=False,
-                        device=None, prologue=None):
+                        device=None, tallies=None):
     """The event loop as it was before the carry was written in place:
     a new carry dict every step, frozen with ``torch.where``."""
     assert not graph
@@ -244,8 +244,7 @@ def rebuilt_carry_drive(st, body, cond, check_every, graph=False,
     while True:
         if step % check_every == 0 and not bool(live.any()):
             break
-        cur = st if prologue is None else prologue(st, live)
-        new = body(cur, live)
+        new = body(st, live)
         st = {k: torch.where(live.view((R,) + (1,) * (v.dim() - 1)),
                              new[k], v) for k, v in st.items()}
         live = cond(st)
@@ -322,14 +321,43 @@ def test_in_place_step_equals_the_rebuilt_carry_bitwise(case, monkeypatch):
     assert np.asarray(got.ok).all()
 
 
+def sync_free_placement(placing, table, e_obj, size_now, missing, cpus,
+                        cores, load0, tally):
+    """Stands in for greedy's placement kernel on the CPU, reading
+    nothing on the host as the kernel does: the plain costs, then every
+    task id in turn (one that is not placing places nowhere)."""
+    from repro_torch.core.vectorized.scheduling import (
+        BIG, INF, table_transfer_costs)
+    R, T = placing.shape
+    if R and T:
+        tally[0] += placing.sum(dim=1).amax()
+    cost = table_transfer_costs(table, e_obj, size_now, missing)
+    load = load0.clone()
+    pw = torch.full((R, T), -1, dtype=torch.int64)
+    rows = torch.arange(R)
+    for t in range(T):
+        act = placing[:, t]
+        c = torch.where(cores >= cpus[:, t, None], cost[:, t], INF)
+        cand = c == c.amin(dim=1, keepdim=True)
+        ld = torch.where(cand, load, BIG)
+        cand = cand & (ld == ld.amin(dim=1, keepdim=True))
+        w = cand.int().argmax(dim=1)
+        pw[:, t] = torch.where(act, w, -1)
+        load[rows, w] += act.long()
+    return pw
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_captured_part_of_the_step_reads_no_host(case, monkeypatch):
-    """The graph path of ``_drive`` on the CPU: step 0 eager, then (for
-    greedy) the eager prologue and the replayed rest; the plain
-    waterfill runs all its rounds, as it does in a graph on the card."""
+    """The graph path of ``_drive`` on the CPU: step 0 eager, then every
+    later step replayed whole, greedy's invocation too; the plain
+    waterfill runs all its rounds, as it does in a graph on the card,
+    and a placement with no host read stands in for greedy's kernel."""
     want = CASES[case](waterfill_impl="torch", step_graph="eager")()
     fake = SyncFreeCapture(monkeypatch)
     monkeypatch.setattr(sim, "_capture", fake)
+    monkeypatch.setattr("repro_torch.kernels.greedy_place.greedy_place",
+                        sync_free_placement)
     monkeypatch.setattr(sim, "_resolve_step_graph", lambda s, d: True)
     got = CASES[case](waterfill_impl="torch")()
     assert_bitwise(got, want, case)

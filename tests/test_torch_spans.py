@@ -111,7 +111,7 @@ class FakeCapture:
 
 @pytest.mark.parametrize("sched", ["blevel", "greedy"])
 def test_graph_path_spans_account_for_the_loop(sched, monkeypatch):
-    want = runner(sched)(POINTS)
+    want, _, eager = one_call(runner(sched))
     monkeypatch.setattr(sim, "_capture", FakeCapture())
     monkeypatch.setattr(sim, "_resolve_step_graph", lambda s, d: True)
     res, recs, cc = one_call(runner(sched))
@@ -127,14 +127,17 @@ def test_graph_path_spans_account_for_the_loop(sched, monkeypatch):
     assert steps == cc.calls + cc.replays
     assert c["polls"] == steps // 16 + 1 and steps % 16 == 0
     assert "step" not in d["sums"]
-    if sched == "greedy":
-        assert d["sums"]["prologue"][0] == c["replays"]
-    else:
-        assert "prologue" not in d["sums"]
+    # greedy's invocation is replayed with the rest of the step: no
+    # prologue runs, no span sits inside the captured step, and the
+    # placer's iterations, summed in the call's tally and read once
+    # after the loop, equal the eager run's
+    assert "prologue" not in d["sums"] and "place" not in d["sums"]
+    assert c["place_iters"] == cc.place_iters == eager.place_iters
+    assert (c["place_iters"] > 0) == (sched == "greedy")
     loop = names["loop"]
     inside = sum(names[n]["end"] - names[n]["start"]
                  for n in ("step0", "capture")) + sum(
-        d["sums"].get(n, (0, 0.0))[1] for n in ("prologue", "replay", "poll"))
+        d["sums"].get(n, (0, 0.0))[1] for n in ("replay", "poll"))
     assert inside <= loop["end"] - loop["start"]
     root = names["grid_call"]
     kids = sum(r["end"] - r["start"] for r in recs

@@ -51,7 +51,7 @@ def accounting(records, check_every=16):
         loop = loops[d["id"]]
         inside = once.get(d["id"], 0.0) + sum(
             d["sums"].get(n, (0, 0.0))[1]
-            for n in ("prologue", "replay", "poll", "step"))
+            for n in ("replay", "poll", "step"))
         c = d["counters"]
         steps = 1 + c["replays"] + d["sums"].get("step", (0,))[0]
         drives.append(dict(
