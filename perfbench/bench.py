@@ -10,13 +10,19 @@ traffic exist, both closed loops of one client:
 * ``grid`` -- each call is one shape bucket of the configuration's
   graphs x all of its clusters x the points, one batched simulator call
   built by ``make_grid_runner`` as the survey builds a group; the graphs
-  are encoded once in set-up and the calls cycle over the buckets;
+  are encoded once in set-up and the calls cycle over the buckets.  The
+  traffic file may name the runner's ``engine`` (``vmap`` or
+  ``sharded``), its ``ranks`` (default 1; above 1 the run is that many
+  processes, one a card, ``run.launch``) and ``stream_rows`` (default:
+  one chunk a call); with none of them the runner is built as the
+  survey's default;
 * ``proto`` -- each request encodes one graph, builds its runner on one
   cluster and runs the points; requests cycle over the (graph, cluster)
   pairs.
 
-Inputs are made here from ``--seed`` (``reference.generators``), and
-the same graph objects go to the program and to the reference.  The
+Inputs are made here from ``--seed`` (``reference.generators``, or a
+configuration's own file in ``reference/datasets/``), and the same
+graph objects go to the program and to the reference.  The
 program is imported lazily (``program()``), so that the reference and
 the tests of this folder load without it.
 """
@@ -39,6 +45,7 @@ MiB = 1024.0 * 1024.0
 # steps of a grid bucket's warm-up call: past step 0 and the capture,
 # enough to load every kernel and fill the allocator's pools
 WARMUP_STEPS = 48
+ENGINES = ("vmap", "sharded")
 
 
 def _load(path: Path) -> dict:
@@ -96,6 +103,29 @@ def cores_matrix(cluster_names) -> tuple:
                         for c in lists])
 
 
+def engine_opts(traffic: dict) -> dict:
+    """``make_grid_runner``'s engine options a traffic file names:
+    ``engine``, ``devices`` (its ``ranks``) and ``stream_rows``, only
+    those it gives."""
+    opts = {}
+    if "engine" in traffic:
+        opts["engine"] = traffic["engine"]
+        if opts["engine"] not in ENGINES:
+            raise ValueError(f"engine {opts['engine']!r} is not one of "
+                             f"{ENGINES}")
+    if "ranks" in traffic:
+        opts["devices"] = int(traffic["ranks"])
+    if "stream_rows" in traffic:
+        opts["stream_rows"] = int(traffic["stream_rows"])
+    if opts and traffic["kind"] != "grid":
+        raise ValueError(f"engine options {sorted(opts)} need grid traffic")
+    if opts.get("devices", 1) < 1 or opts.get("stream_rows", 1) < 1:
+        raise ValueError(f"ranks and stream_rows must be at least 1: {opts}")
+    if opts.get("devices", 1) > 1 and opts.get("engine") != "sharded":
+        raise ValueError("ranks above 1 need the sharded engine")
+    return opts
+
+
 class Workload:
     """The inputs of one run of a cell: graphs drawn from ``seed``, the
     clusters and points, and what one call covers (``units``)."""
@@ -109,10 +139,14 @@ class Workload:
             raise ValueError(f"traffic kind {self.kind!r} is not grid or "
                              f"proto")
         self.scheduler, self.netmodel = tr["scheduler"], tr["netmodel"]
+        self.engine_opts = engine_opts(tr)
+        self.ranks = self.engine_opts.get("devices", 1)
+        self.stream_rows = self.engine_opts.get("stream_rows")
         self.points = grid_points(cfg, tr.get("points", {}))
         self.clusters = list(cfg["clusters"])
         self.W, self.cores = cores_matrix(self.clusters)
-        graphs = [gen.make_graph(cfg["dataset"], n, seed)
+        folder = w["dir"] / "reference" / "datasets"
+        graphs = [gen.make_graph(cfg["dataset"], n, seed, folder)
                   for n in cfg["graphs"]]
         self.graphs = graphs
         if self.kind == "grid":
@@ -153,6 +187,8 @@ class Client:
         self.wl = wl
         self.device = device
         self.graphs_mod, self.vec, self.k1 = program()
+        import repro_torch.kernels.greedy_place as gp
+        self.gp = gp
         self.calls = []
         self.encoded = self.groups = None
         self.est_caches = {}
@@ -181,11 +217,13 @@ class Client:
             [encoded[n] for n in grp.names], self.wl.scheduler, self.wl.W,
             self.wl.cores[list(ks)], netmodel=self.wl.netmodel,
             shape=grp.shape, batch=grp.batch, est_cache=est_cache,
-            device=self.device, frontier_caps=(E, T), max_steps=max_steps)
+            device=self.device, frontier_caps=(E, T), max_steps=max_steps,
+            **self.wl.engine_opts)
 
     def warmup(self):
         """Every shape the window uses, once: a grid bucket's call at its
-        full rows, stopped after ``WARMUP_STEPS`` steps (its results are
+        full rows (a rank's block of them, split and gathered as in the
+        window), stopped after ``WARMUP_STEPS`` steps (its results are
         dropped); a proto request of the first (graph, cluster) pair of
         each shape bucket."""
         for i in self.one_per_shape():
@@ -194,7 +232,10 @@ class Client:
                                       self.wl.units[i][1],
                                       self.est_caches.setdefault(i, {}),
                                       max_steps=WARMUP_STEPS)
-                runner.run(*runner.row_inputs(self.wl.points))
+                if runner.device != self.device:
+                    raise RuntimeError(f"the runner chose {runner.device}, "
+                                       f"this rank's card is {self.device}")
+                runner._execute(self.wl.points)
             else:
                 self.call(i, record=False)
         self.sync()
@@ -221,6 +262,7 @@ class Client:
         from torch.profiler import record_function
         rec = dict(unit=i, rows=self.wl.rows_of(unit), error=None)
         launches0 = self.k1.LAUNCHES.count
+        gp0 = self.gp.LAUNCHES.count
         grp = None
         t0 = time.perf_counter()
         try:
@@ -243,14 +285,17 @@ class Client:
             rec.update(result=res, ok=int(res.ok.sum()),
                        row_steps=int(res.n_steps.sum()),
                        sim_calls=cc.calls, captures=cc.captures,
-                       replays=cc.replays)
+                       replays=cc.replays, place_iters=cc.place_iters,
+                       T=grp.shape[0])
         except RuntimeError as e:          # a row failed: _check_ok raises
             t1 = t2 = t3 = time.perf_counter()
             rec.update(result=None, ok=0, row_steps=0, sim_calls=0,
-                       captures=0, replays=0, error=str(e)[:500])
+                       captures=0, replays=0, place_iters=0, T=0,
+                       error=str(e)[:500])
         rec.update(t0=t0, t1=t3, encode_s=t1 - t0, build_s=t2 - t1,
                    run_s=t3 - t2,
-                   k1_launches=self.k1.LAUNCHES.count - launches0)
+                   k1_launches=self.k1.LAUNCHES.count - launches0,
+                   gp_launches=self.gp.LAUNCHES.count - gp0)
         if record:
             self.calls.append(rec)
         return rec
@@ -260,10 +305,12 @@ class Client:
         units = range(len(self.wl.units)) if units is None else units
         return [self.call(i, record) for i in units]
 
-    def window(self, seconds: float):
+    def window(self, seconds: float, agree=bool):
         """Whole cycles until ``seconds`` have passed since the first
-        call started: no cycle starts after that."""
+        call started: no cycle starts after that.  ``agree`` turns this
+        process's "one more cycle" into the one every rank of the run
+        acts on (``run.Ranks.agree``: rank 0's)."""
         start = time.perf_counter()
-        while time.perf_counter() - start < seconds:
+        while agree(time.perf_counter() - start < seconds):
             self.cycle()
         return start, time.perf_counter()

@@ -5,11 +5,16 @@ workflows (paper Table 1; estee's ``benchmarks/README.md``, zenodo
 fixed per graph; ``seed`` draws the durations, sizes and the ``user``
 imode's category estimates, so every seed gives the same shapes.
 
-Both the program and the reference read the graphs made here."""
+A dataset outside these two brings its own generators in a file of
+``datasets/`` (``make_graph``).  Both the program and the reference read
+the graphs made here."""
 from __future__ import annotations
 
+import importlib.util
 import math
 import random
+import re
+from pathlib import Path
 
 from .taskgraph import MiB, TaskGraph
 
@@ -493,8 +498,32 @@ PEGASUS = {
 
 
 DATASETS = {"elementary": ELEMENTARY, "pegasus": PEGASUS}
+# where a dataset that is not one of DATASETS brings its own generators
+DATASETS_DIR = Path(__file__).resolve().parent / "datasets"
+DATASET_NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
-def make_graph(dataset: str, name: str, seed: int) -> TaskGraph:
-    """Graph ``name`` of ``dataset`` drawn with ``seed``."""
-    return DATASETS[dataset][name](seed=seed)
+def dataset_file(dataset: str, folder=DATASETS_DIR) -> dict:
+    """``GRAPHS`` (``{name: fn(seed) -> TaskGraph}``) of
+    ``<folder>/<dataset>.py``, loaded by path (see
+    ``datasets/__init__.py``)."""
+    if not DATASET_NAME.fullmatch(dataset):
+        raise ValueError(f"dataset name {dataset!r} is not a plain name")
+    path = Path(folder) / f"{dataset}.py"
+    if not path.is_file():
+        raise KeyError(f"dataset {dataset!r} is not one of {sorted(DATASETS)} "
+                       f"and has no file {path}")
+    spec = importlib.util.spec_from_file_location(
+        "perfbench_dataset_" + re.sub(r"\W", "_", dataset), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.GRAPHS
+
+
+def make_graph(dataset: str, name: str, seed: int,
+               folder=DATASETS_DIR) -> TaskGraph:
+    """Graph ``name`` of ``dataset`` drawn with ``seed``: from the frozen
+    ``DATASETS``, or else from ``<folder>/<dataset>.py``."""
+    if dataset in DATASETS:
+        return DATASETS[dataset][name](seed=seed)
+    return dataset_file(dataset, folder)[name](seed)

@@ -1,5 +1,6 @@
 """The yardstick of a kernel's roofline share: the H100's published
-peaks and the bytes a K1 launch needs.
+peaks and the bytes a K1 launch and a greedy placement (GP) launch
+need.
 
 Peaks are NVIDIA's data sheet for one H100 SXM at its full 700 W power
 limit; a card set lower runs slower, so every run prints the card's
@@ -17,3 +18,18 @@ def k1_bytes(R: int, F: int, W: int) -> int:
     capacity per worker) and the f32 rate of each flow written once."""
     return R * (F * 4 * 2 + F * 1 + W * 4 * 2 + F * 4)
 
+
+
+def place_bytes(R: int, T: int, W: int, placing: int = 0, edges: int = 0,
+                objects: int = 0) -> int:
+    """Bytes one GP launch (greedy's placement, ``R`` rows of ``T``
+    tasks over ``W`` workers) needs, as ``chip_smoke._place_bytes``
+    counts them: the placing flags (one byte a task), the cores (int64)
+    of the ``placing`` tasks that place, their ``edges`` input-edge
+    entries and objects (int64 each), the size (f32) and W missing flags
+    of each of the ``objects`` those edges reach, the workers' cores and
+    loads (int64), read once; the proposed worker of every task (int64)
+    written once.  The flags, cores, loads and proposals are fixed by
+    the shape; a count left at 0 makes the bytes a lower bound."""
+    return (R * T + 8 * placing + 16 * edges + objects * (4 + W)
+            + 16 * R * W + 8 * R * T)

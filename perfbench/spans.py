@@ -1,5 +1,5 @@
 """Helpers the readers of the program's own spans share
-(``metrics/schedule_ms.*``, ``prologue_ms.greedy``, ...).
+(``metrics/schedule_ms.*``, ``outside_loop_share.4card``, ...).
 
 The program keeps one tree of span records a runner call
 (``repro_torch.core.vectorized.span_log``, on ``time.perf_counter()``,
@@ -7,8 +7,8 @@ the clock of ``run["window"]``): once-records ``grid_call``,
 ``rows_in``, ``prepare``, ``schedule`` (with ``device_s``, its stream
 time, on a card), ``drive``, ``loop``, ``step0``, ``capture``,
 ``free``, ``results_out``; each ``drive`` record sums its per-step
-spans (``sums``: ``{name: [count, seconds, largest]}`` of ``prologue``,
-``place``, ``replay``, ``poll``, ``step``) and holds the odometers'
+spans (``sums``: ``{name: [count, seconds, largest]}`` of ``place``,
+``replay``, ``poll``, ``step``) and holds the odometers'
 deltas over it (``counters``: ``calls``, ``captures``, ``replays``,
 ``polls``, ``place_iters``).  A reader returns ``None`` when the program
 keeps no such log (an older program), holds no runner call of the
@@ -69,7 +69,10 @@ def schedule_ms(run, kind):
 
 
 def prologue_ms(run):
-    """Greedy's eager prologue a replayed step."""
+    """Greedy's eager prologue a replayed step: an older program's
+    summed ``prologue`` span (the step is captured whole since greedy's
+    placement became one kernel, and no metric of ``BENCHMARK.json``
+    reads it any more)."""
     calls = window_calls(run, "grid")
     replays = counter(calls, "replays") if calls else 0
     return 1e3 * summed(calls, "prologue") / replays if replays else None
@@ -89,7 +92,7 @@ def place_iters_per_step(run):
 
 def replay_step_ms(run, kind):
     """The loop's time past step 0 and the capture over the replays:
-    a replayed step's prologue, launch and share of the polls."""
+    a replayed step's launch and share of the polls."""
     calls = window_calls(run, kind)
     replays = counter(calls, "replays") if calls else 0
     if not replays:
@@ -105,6 +108,26 @@ def poll_wait_share(run):
     calls = window_calls(run, "grid")
     loop = seconds(calls, "loop") if calls else 0.0
     return summed(calls, "poll") / loop if loop > 0 else None
+
+
+def drive_per_call(run):
+    """Seconds of the event loops (``drive``) of each of the window's
+    runner calls, in order (``None`` where there is no span log)."""
+    calls = window_calls(run, "grid")
+    return None if calls is None else [seconds([c], "drive") for c in calls]
+
+
+def outside_loop_share(run):
+    """Share of the runner calls' wall time (``run_s``) outside the
+    simulator calls (their ``prepare`` and ``drive`` spans): the
+    sharded engine's split, row queue and gather, and the copy of the
+    results to the host."""
+    calls = window_calls(run, "grid")
+    if calls is None:
+        return None
+    wall = sum(c["run_s"] for c in run["calls"])
+    inside = seconds(calls, "prepare") + seconds(calls, "drive")
+    return 1.0 - inside / wall if wall > 0 else None
 
 
 def graph_setup_ms(run):

@@ -10,6 +10,8 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
+import torch
 
 from conftest import ROOT, add_cells, copy_benchmark
 
@@ -64,6 +66,68 @@ def test_new_config_traffic_metric_found_by_name(tmp_path):
     # nothing that was there changed
     after = _files(root)
     assert all(after[k] == v for k, v in before.items())
+
+
+SHUFFLE = """\
+import random
+
+from perfbench.reference.generators import finish, tnormal
+from perfbench.reference.taskgraph import MiB, TaskGraph
+
+
+def shuffle(seed):
+    rng = random.Random(seed)
+    g = TaskGraph("shuffle")
+    maps = [g.new_task(tnormal(rng, 20, 4), name="map",
+                       outputs=[tnormal(rng, 8, 2) * MiB for _ in range(3)])
+            for _ in range(4)]
+    for r in range(3):
+        g.new_task(tnormal(rng, 10, 2), inputs=[m.outputs[r] for m in maps],
+                   cpus=2, name="reduce")
+    return finish(g, seed)
+
+
+GRAPHS = {"shuffle": shuffle}
+"""
+
+
+def test_new_dataset_file_found_by_name(tmp_path):
+    """A configuration naming a dataset outside the frozen two brings it
+    as one new file of ``reference/datasets/``; its graphs reach the
+    program and the reference alike, which agree on every row."""
+    from perfbench import check
+    root = copy_benchmark(tmp_path)
+    before = _files(root)
+    (root / "perfbench" / "reference" / "datasets" / "shuffle-ds.py") \
+        .write_text(SHUFFLE)
+    add_cells(root, dict(name="shuffle-w4", source="test",
+                         dataset="shuffle-ds", graphs=["shuffle"],
+                         clusters=["4x4"], bandwidths_mib=[32, 1024],
+                         imodes=["exact", "user"], msds=[0.0, 0.4],
+                         decision_delay=0.05, precision="float32"),
+              {"shuffle.blevel-grid": "elementary-w32.blevel-grid"})
+    w = bench.cell("shuffle.blevel-grid", root)
+    wl = bench.Workload(w, seed=2 ** 31 + 41)
+    (g,) = wl.graphs
+    assert (g.name, g.task_count) == ("shuffle", 7)
+    assert bench.Workload(w, seed=7).graph("shuffle").task_count == 7
+    client = bench.Client(wl, torch.device("cpu"))
+    client.setup()
+    rec = client.call(0)
+    assert rec["error"] is None and rec["ok"] == rec["rows"] == 8
+    rows = check.unit_rows(wl, 0)
+    got = check.program_rows(rec["result"], rows)
+    want = check.reference(wl, 0, rows, torch.device("cpu"))
+    for key in ("makespan", "transferred", "n_events", "n_steps", "ok"):
+        assert np.array_equal(got[key], want[key]), key
+    after = _files(root)
+    assert all(after[k] == v for k, v in before.items())
+    # a dataset with neither a frozen generator nor a file, or a name
+    # that is a path, is refused
+    for bad, exc in (("no-such-ds", KeyError), ("../configs/x", ValueError)):
+        cfg = dict(w["config_data"], dataset=bad)
+        with pytest.raises(exc):
+            bench.Workload(dict(w, config_data=cfg), seed=1)
 
 
 def test_cells_of_the_repo_resolve():

@@ -5,8 +5,9 @@ takes minutes to summarise).
 
 ``profile(fn, host=False)`` gives the wall time, the device's busy time
 (the union of its events' intervals, so overlapping events count
-once), K1's device time (its kernels have ``waterfill_`` in their names) and the
-device operations that took most time.  With ``host=True`` the host's
+once), K1's device time (its kernels have ``waterfill_`` in their names),
+greedy's placement kernel's (``greedy_place_``) and the device
+operations that took most time.  With ``host=True`` the host's
 operations are recorded too, and each idle gap of the device is put
 down to what the host was doing in its middle: the innermost host
 operation or benchmark span (``record_function``) open at that moment.
@@ -20,6 +21,7 @@ import time
 import torch
 
 K1_PREFIX = "waterfill_"
+GP_PREFIX = "greedy_place_"
 TOP = 10
 NAME = 160          # characters of an operation's name kept in the line
 
@@ -90,8 +92,9 @@ def profile(fn, host: bool = False) -> dict:
     for s, e, name in dev:
         by_name[name] = by_name.get(name, 0) + (e - s)
     k1_ns = sum(v for k, v in by_name.items() if K1_PREFIX in k)
+    gp_ns = sum(v for k, v in by_name.items() if GP_PREFIX in k)
     out = dict(wall_s=wall_s, busy_s=busy_ns / 1e9, k1_device_s=k1_ns / 1e9,
-               device_events=len(dev),
+               gp_device_s=gp_ns / 1e9, device_events=len(dev),
                device_ops=[[k[:NAME], v / 1e9] for k, v in sorted(
                    by_name.items(), key=lambda kv: kv[1],
                    reverse=True)[:TOP]])
