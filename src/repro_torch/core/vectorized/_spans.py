@@ -4,10 +4,17 @@ spends its time, on the host's clock, always on.
 ``GRAPH_EVENTS`` holds the process-wide odometers of the event loops:
 ``calls`` (simulator calls), ``captures`` (one per call whose step ran
 from a CUDA graph), ``replays``, ``polls`` (the host's reads of "any
-row live") and ``place_iters`` (the greedy placer's loop iterations,
-counted on the device and read once a simulator call);
-``engine.capture_counter`` reads them, and the span totals, as scoped
-deltas.
+row live"), and the counters a simulator call adds once, after its
+loop (``count``): ``place_iters`` (the greedy placer's loop
+iterations) and ``slot_busy`` (download slots occupied in live rows,
+summed over the steps), both counted on the device inside the step;
+``edge_lanes`` and ``valid_edges`` (the bucket's padded and real input
+edges, times the rows).  ``PEAKS`` hold a largest value, not a sum:
+``frontier_peak`` (the fullest candidate-flow frontier of a live row
+in any step, counted on the device) and ``flow_cap`` (that frontier's
+cap); their odometer keeps the largest a call has reported.
+``engine.capture_counter`` reads the sums, and the span totals, as
+scoped deltas.
 
 Beside them every runner call is one tree of spans::
 
@@ -33,11 +40,11 @@ placement where the step runs eagerly, never inside a captured step,
 ``replay``, ``poll``, and ``step`` for an eager step past step 0) are
 summed into their ``drive`` record's ``sums``: ``{name: [count,
 seconds, largest]}``; the drive record's ``counters`` are the
-odometers' deltas over it.  A ``schedule`` on a card also records a
-pair of CUDA events on its stream and gets ``device_s``, the stream
-time between them, once both are done: when its call ends (after the
-call's own copy to the host) or when ``span_log`` reads it, never by a
-sync of its own.
+odometers' deltas over it, and a peak's value in that call.  A
+``schedule`` on a card also records a pair of CUDA events on its
+stream and gets ``device_s``, the stream time between them, once both
+are done: when its call ends (after the call's own copy to the host)
+or when ``span_log`` reads it, never by a sync of its own.
 
 The calls sit in a bounded buffer of ``MAX_CALLS``; what it lets go is
 counted (``LOG.dropped``).  Nothing is written out.  The timestamps and
@@ -64,7 +71,10 @@ PREFIX = "repro_torch."
 MAX_CALLS = 4096
 
 GRAPH_EVENTS = {"calls": 0, "captures": 0, "replays": 0, "polls": 0,
-                "place_iters": 0}
+                "place_iters": 0, "slot_busy": 0, "edge_lanes": 0,
+                "valid_edges": 0, "frontier_peak": 0, "flow_cap": 0}
+# the counters that hold a largest value, not a sum
+PEAKS = ("frontier_peak", "flow_cap")
 # every span closed in the process: {name: [count, seconds]}; a summed
 # span counts here when its drive ends
 SPAN_TOTALS = {}
@@ -201,7 +211,8 @@ class drive(span):
     """The ``drive`` span of one simulator call (``sim._drive``).  It
     first ends an open ``prepare``: the simulator's set-up ends where
     its loop begins.  The summed spans inside it land in its ``sums``,
-    the odometers' deltas over it in its ``counters``."""
+    the odometers' deltas over it in its ``counters``, and for a peak
+    the value of its own call."""
 
     __slots__ = ("at",)
 
@@ -213,13 +224,16 @@ class drive(span):
             _end(_open[-1])
         rec = super().__enter__()
         rec["sums"] = {}
+        rec["peaks"] = dict.fromkeys(PEAKS, 0)
         self.at = dict(GRAPH_EVENTS)
         _drives.append(rec)
         return rec
 
     def __exit__(self, *exc):
         rec = _drives.pop()
-        rec["counters"] = {k: v - self.at[k] for k, v in GRAPH_EVENTS.items()}
+        peaks = rec.pop("peaks")
+        rec["counters"] = {k: peaks[k] if k in peaks else v - self.at[k]
+                           for k, v in GRAPH_EVENTS.items()}
         for name, (n, s, _) in rec["sums"].items():
             _add_total(name, n, s)
         return super().__exit__(*exc)
@@ -257,6 +271,18 @@ class _Summed:
             if dt > acc[2]:
                 acc[2] = dt
         return False
+
+
+def count(name, value):
+    """Add ``value`` to the odometer ``name``, or for one of ``PEAKS``
+    raise it to ``value`` and keep ``value`` as the open drive's own."""
+    if name not in PEAKS:
+        GRAPH_EVENTS[name] += value
+        return
+    GRAPH_EVENTS[name] = max(GRAPH_EVENTS[name], value)
+    if _drives:
+        peaks = _drives[-1]["peaks"]
+        peaks[name] = max(peaks[name], value)
 
 
 PLACE, REPLAY, POLL, STEP = (

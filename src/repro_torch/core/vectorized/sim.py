@@ -68,8 +68,8 @@ import torch
 from ...device import resolve_device
 from ._ops import (NEG, as_rows, fma32, scatter_count, scatter_max,
                    scatter_min, scatter_or, take)
-from ._spans import (GRAPH_EVENTS, PLACE, POLL, REPLAY, STEP, drive,
-                     prepared, span)
+from ._spans import (GRAPH_EVENTS, PLACE, POLL, REPLAY, STEP, count,
+                     drive, prepared, span)
 from .scheduling import (VEC_SCHEDULERS, _cores_arg, _resolve_cores,
                          bucket_blevel, edge_table, graph_view,
                          make_bucket_scheduler, rank_priorities)
@@ -445,9 +445,10 @@ def _resolve_step_graph(step_graph: str, device) -> bool:
 _DRIVE_OBSERVER = None
 
 # ``GRAPH_EVENTS`` (``_spans``): the process-wide odometers of the event
-# loops (``calls``, ``captures``, ``replays``, ``polls``,
-# ``place_iters``), read as scoped deltas by ``engine.capture_counter``;
-# a step's own device counters (``place_iters``) reach them through
+# loops (``calls``, ``captures``, ``replays``, ``polls``, and the
+# counters of a call's flows and placements), read as scoped deltas by
+# ``engine.capture_counter``; a step's own device counters
+# (``place_iters``, ``slot_busy``, ``frontier_peak``) reach them through
 # ``_drive``'s ``tallies``, read once a call.
 # Beside them every runner call leaves one tree of spans (``grid_call``
 # down to ``_drive``'s step 0, capture, replays and polls) in
@@ -514,8 +515,10 @@ def _drive(st, body, cond, check_every, graph=False, device=None,
     before capture); then one step is captured on the carry into a CUDA
     graph on ``device`` and replayed for every later step, and the graph
     and its pool are freed when the loop ends.  ``tallies`` (``{name:
-    tensor}``) are counters the step adds to on the device; each is read
-    once after the loop and added to ``GRAPH_EVENTS[name]``.
+    tensor or int}``) are the call's counters: the tensors, which the
+    step adds to on the device, are read together once after the loop,
+    and each value is counted into ``GRAPH_EVENTS[name]``
+    (``_spans.count``).
 
     The call is one ``drive`` span (``_spans``): ``loop`` around every
     step and poll, once-records ``step0``, ``capture`` and ``free``, and
@@ -562,9 +565,25 @@ def _drive(st, body, cond, check_every, graph=False, device=None,
             if free is not None:
                 with span("free"):
                     free()
-        for name, t in (tallies or {}).items():
-            GRAPH_EVENTS[name] += int(t)
+        tallies = dict(tallies or {})
+        on_device = [k for k, v in tallies.items() if torch.is_tensor(v)]
+        if on_device:
+            tallies.update(zip(on_device, torch.stack(
+                [tallies[k] for k in on_device]).tolist()))
+        for name, value in tallies.items():
+            count(name, value)
     return st
+
+
+def _count_flows(tally, live, occupied, frontier=None):
+    """The flow path's device counters, kept inside the step with no
+    host read: ``tally[0]`` gains the download slots ``occupied`` in
+    live rows, and ``tally[1]`` rises to the fullest candidate-flow
+    ``frontier`` (ids, ``-1`` where free) of a live row."""
+    tally[0].add_((occupied & live[:, None]).sum())
+    if frontier is not None:
+        live_fill = ((frontier >= 0) & live[:, None]).sum(dim=1)
+        torch.maximum(tally[1], live_fill.amax(), out=tally[1])
 
 
 def _live(steps_cap, stop_on_overflow=True):
@@ -1089,6 +1108,9 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             p_time0 = torch.where(task_valid, delay[:, None], INF)
 
         CF, CT = _frontier_caps(frontier_caps, T, O, E)
+        # the flow path's counters (``_count_flows``): occupied slots
+        # summed over the steps, the fullest candidate-flow frontier
+        flow_tally = torch.zeros(2, dtype=torch.int64, device=dev)
 
         def zf(*shape):
             return torch.zeros(*shape, dtype=torch.float32, device=dev)
@@ -1394,6 +1416,7 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             st["overflow"] = st["overflow"] | ov_t
             if use_slots:
                 st = start_flows_frontier(st, keymax)
+                _count_flows(flow_tally, live, st["slot_edge"] >= 0, fr_flow)
             st = start_tasks_frontier(st)
             st, rem, done_now = advance(st)
             if use_slots:
@@ -1420,6 +1443,8 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
                   else apply_due(dict(st)))
             if E > 0:
                 st = start_flows_edges(st)
+            if use_slots:
+                _count_flows(flow_tally, live, st["slot_edge"] >= 0)
             st = start_tasks_edges(st)
             st, rem, done_now = advance(st)
             if use_slots:
@@ -1433,9 +1458,14 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
                 st["f_done"] = st["f_done"] | done_now
             return st
 
+        tallies = dict(slot_busy=flow_tally[0], frontier_peak=flow_tally[1],
+                       flow_cap=CF if carried_keys else 0,
+                       edge_lanes=R * E, valid_edges=edge_valid.sum())
+        if dynamic_sched:
+            tallies["place_iters"] = tally[0]
         st = _drive(st, body if use_frontier else body_edges,
                     _live(steps_cap, use_frontier), check_every, graph, dev,
-                    {"place_iters": tally[0]} if dynamic_sched else None)
+                    tallies)
         if carried_keys:
             transferred = st["transferred"]
         else:

@@ -409,8 +409,10 @@ def test_spans_of_a_runner_call_on_the_card(dev, sched):
     prologue, and no ``place`` span inside the captured step), the graph
     freed, the per-step spans inside the loop, the
     schedule's stream time from its CUDA events once the call's results
-    are on the host, and greedy's placer iterations, counted on the
-    card, equal to the plain version's count on the same rows."""
+    are on the host, and the counters the replayed step keeps on the
+    card (greedy's placer iterations, the flow path's occupied slots
+    and fullest frontier) equal to the eager CPU run's on the same
+    rows."""
     import time
     from repro_torch.core import MiB
     from repro_torch.core.graphs import encode_graph_batch, survey_names
@@ -442,14 +444,20 @@ def test_spans_of_a_runner_call_on_the_card(dev, sched):
     assert c["polls"] == d["sums"]["poll"][0] == steps // 16 + 1
     assert steps % 16 == 0 and int(res.n_steps.max()) <= steps
     assert "prologue" not in d["sums"] and "place" not in d["sums"]
+    cpu = make_grid_runner([encoded[n] for n in grp.names], sched, 8,
+                           [4] * 8, shape=grp.shape, batch=grp.batch,
+                           device="cpu")
+    t0 = time.perf_counter()
+    with capture_counter() as plain:
+        cpu(points)
+    (eager,) = [r["counters"] for r in span_log(t0, time.perf_counter())[0]
+                if r["name"] == "drive"]
+    for key in ("slot_busy", "frontier_peak", "flow_cap", "edge_lanes",
+                "valid_edges", "place_iters"):
+        assert c[key] == eager[key], key
+    assert c["slot_busy"] > 0 and c["frontier_peak"] > 0
     if sched == "greedy":
-        assert c["place_iters"] == cc.place_iters > 0
-        cpu = make_grid_runner([encoded[n] for n in grp.names], sched, 8,
-                               [4] * 8, shape=grp.shape, batch=grp.batch,
-                               device="cpu")
-        with capture_counter() as plain:
-            cpu(points)
-        assert c["place_iters"] == plain.place_iters
+        assert c["place_iters"] == cc.place_iters == plain.place_iters > 0
     else:
         assert c["place_iters"] == 0
     loop = names["loop"]
