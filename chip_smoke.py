@@ -50,6 +50,20 @@ printing one JSON line:
    plain version by CUDA events, beside a bytes bound (each input byte
    the placement needs read once, ``new_pw`` written once, at 3.35
    TB/s).
+3c. ``kernel_list_schedule``: the static list schedule's kernel against
+   its plain version (``scheduling.list_schedule_plain`` and
+   ``blevel_priorities_plain`` on the card), bitwise in the assignment
+   and the priorities, for ``blevel``, ``tlevel`` and ``mcp``, and in
+   greedy's priorities alone, one launch a call, or fail: the
+   benchmark cells' calls (elementary T512 at R 1800 and a four-card
+   rank's 450, T160 at R 120 and 30, irw's T160 at E 2368 and T512 at R
+   360, W 32 and C 16; a single-sim request of each pegasus bucket, R 1
+   at W 16), the T2048 bucket, zero durations (b-level ties), no worker
+   with a task's cores, bandwidths from 1e-30 to +inf MiB/s and W 40
+   (a lane strides over two words of workers).  Each cell call is timed
+   by CUDA events (placing and priorities alone), beside the plain
+   version and a bound (its inputs read once, its outputs written once,
+   the rank's T² comparisons and each task's terms over the workers).
 4. ``golden``: the dynamic simulator against the reference package's
    recorded ``BENCH_PR7.json`` dynamic rows (blevel, maxmin, frontier
    on, 100 MiB/s, exact imode, msd 0).
@@ -328,8 +342,10 @@ printing one JSON line:
     main-path runs as K1's in ``survey_agreement``, ``survey_dataset``,
     ``survey_full_width``, ``survey_engine``, ``survey_ranks`` and
     ``escape_hatches``, each zeroed just before its run and read just
-    after; K1 and K2 also by route); needs every kernel's check phase and the
-    phases of its paths in the same run.
+    after, the list schedule's over the same runs in this process (the
+    ranks of ``survey_ranks`` count in their own); K1 and K2 also by
+    route); needs every kernel's check phase and the phases of its paths
+    in the same run.
 
 Every simulator phase but ``survey_engine``'s eager turns, the eager
 turn of ``static_full_width`` and the input recording of
@@ -359,7 +375,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 PHASES = ("env", "build", "kernel_waterfill", "kernel_greedy_place",
-          "golden", "survey_mini",
+          "kernel_list_schedule", "golden", "survey_mini",
           "survey_agreement", "survey_dataset", "survey_full_width",
           "survey_engine", "survey_ranks", "static_golden",
           "static_full_width", "genetic_vec",
@@ -1048,6 +1064,167 @@ def phase_kernel_greedy_place(seed=0):
     return dict(max_abs_err=0.0, path=timing[0], timing=timing)
 
 
+# the list schedule's cases: (graphs, clusters, rows, bucket shape).  The
+# benchmark cells' calls are timed: a blevel grid call of each elementary
+# bucket and a four-card rank's block of it, irw's two, a single-sim
+# request of each pegasus bucket; the T2048 bucket is checked only
+SCHEDULE_CELLS = {
+    "t512_r1800_w32": (("fork1", "size_stairs", "grid", "fern"),
+                       ("32x4", "32x16"), 1800, (512, 416, 704)),
+    "t160_r120_w32": (("merge_triplets",), ("32x4", "32x16"), 120,
+                      (160, 128, 128)),
+    "t512_r450_w32": (("fork1", "size_stairs", "grid", "fern"),
+                      ("32x4", "32x16"), 450, (512, 416, 704)),
+    "t160_r30_w32": (("merge_triplets",), ("32x4", "32x16"), 30,
+                     (160, 128, 128)),
+    "irw_t160_r360_w32": (("crossv", "fastcrossv", "mapreduce48"),
+                          ("32x4", "32x16"), 360, (160, 2368, 2368)),
+    "irw_t512_r360_w32": (("gridcat", "crossvx", "nestedcrossv"),
+                          ("32x4", "32x16"), 360, (512, 416, 992)),
+    "t160_r1_w16": (("montage",), ("16x8",), 1, (160, 160, 224)),
+    "t512_r1_w16": (("epigenomics",), ("16x4",), 1, (512, 320, 320)),
+}
+SCHEDULE_CHECKS = {
+    "t2048_r8_w32": (("t2048_layered",), ("32x4", "1x8+4x2"), 8,
+                     (2048, 576, 2016)),
+    "zero_durations": (("montage", "cybershake", "crossv"),
+                       ("32x16", "1x8+4x2"), 64, (160, 160, 416),
+                       dict(zero_dur=True)),
+    "no_worker_fits": (("montage", "cybershake", "crossv"),
+                       ("32x16", "1x8+4x2"), 64, (160, 160, 416),
+                       dict(tiny_cores=True)),
+    "bandwidth_extremes": (("montage", "cybershake", "crossv"),
+                           ("32x16", "1x8+4x2"), 64, (160, 160, 416),
+                           dict(bandwidths=(1e-30, 1e-3, 1e30,
+                                            float("inf")))),
+    "w40_stride": (("montage", "sipht"), ("40x4", "8x4"), 32,
+                   (160, 160, 224)),
+}
+
+
+def _schedule_graph(name):
+    from repro_torch.core.graphs import irw, make_graph
+    if name == "mapreduce48":
+        return irw.mapreduce(0, maps=48, reduces=48)
+    if name == "t2048_layered":
+        return t2048_graph()
+    return make_graph(name, seed=0)
+
+
+def _schedule_inputs(graphs, clusters, R, shape, seed, zero_dur=False,
+                     bandwidths=(32.0, 1024.0, 8192.0), tiny_cores=False):
+    """Seeded inputs of one schedule call on the card, row r on graph ``r
+    % len(graphs)`` padded to ``shape`` and cluster ``r % len(clusters)``
+    padded to the widest with zero-core workers: ``(g, args)``, ``args``
+    the wrapper's positional arguments after the order, ``max_cores``
+    last.  ``zero_dur``: every estimated duration 0; ``bandwidths`` in
+    MiB/s, a row each in turn; ``tiny_cores``: every worker 1 core."""
+    import numpy as np
+    import torch
+    from repro_torch.core import parse_cluster
+    from repro_torch.core.vectorized.scheduling import graph_view
+    from repro_torch.core.vectorized.specs import (encode_graph, pad_spec,
+                                                   stack_specs)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    specs = [pad_spec(encode_graph(_schedule_graph(n)), shape)
+             for n in graphs]
+    g = graph_view(stack_specs([specs[r % len(specs)] for r in range(R)])
+                   .to(dev))
+    lists = [parse_cluster(c) for c in clusters]
+    cores = np.zeros((R, max(len(c) for c in lists)), np.int64)
+    for r in range(R):
+        cores[r, :len(lists[r % len(lists)])] = lists[r % len(lists)]
+    C = int(cores.max())
+    if tiny_cores:
+        cores = np.minimum(cores, 1)
+    dur = rng.lognormal(2, 1, (R, g.T)).astype(np.float32)
+    if zero_dur:
+        dur[:] = 0.0
+    size = rng.lognormal(17, 2, (R, g.O)).astype(np.float32)
+    bw = np.asarray([bandwidths[r % len(bandwidths)] for r in range(R)],
+                    np.float32) * np.float32(2 ** 20)
+    return g, (g.e_task, g.prod_e, g.e_obj, g.edge_valid, g.cpus,
+               torch.where(g.task_valid, torch.as_tensor(dur, device=dev),
+                           0.0),
+               torch.where(g.obj_valid, torch.as_tensor(size, device=dev),
+                           0.0),
+               torch.as_tensor(bw, device=dev),
+               torch.as_tensor(cores, device=dev), C)
+
+
+def _schedule_work(g, args):
+    """(bytes, operations) one schedule call needs: each input byte read
+    once (edges 33 B, tasks 16 B, objects 4 B, workers 8 B, a row's
+    bandwidth) and the outputs written once (12 B a task); per row the
+    rank's T² comparisons, each valid edge's terms over the W workers,
+    and each task's start, argmin and commit over W and C."""
+    R, T, E, O = g.R, g.T, g.E, g.O
+    W, C = args[8].shape[1], args[9]
+    n_edges = int(g.edge_valid.sum())
+    nbytes = R * (33 * E + 16 * T + 4 * O + 8 * W + 4) + R * T * 12
+    ops = R * T * T + n_edges * 3 * W + R * T * (4 * W + 2 * C)
+    return nbytes, ops
+
+
+def phase_kernel_list_schedule(seed=0):
+    import torch
+    from repro_torch.core.vectorized.scheduling import (
+        LIST_ORDERS, blevel_priorities_plain, list_schedule_plain)
+    from repro_torch.kernels import LIST_SCHEDULE_LAUNCHES as L
+    from repro_torch.kernels import list_schedule as lk
+    checks, timing = [], []
+    cases = dict(SCHEDULE_CELLS)
+    cases.update(SCHEDULE_CHECKS)
+    for i, (name, case) in enumerate(cases.items()):
+        graphs, clusters, R, shape = case[:4]
+        g, args = _schedule_inputs(graphs, clusters, R, shape, seed + i,
+                                   **(case[4] if len(case) > 4 else {}))
+        *tensors, C = args
+        edges = (g.e_task, g.prod_e, g.edge_valid, tensors[5])
+        for order in LIST_ORDERS:
+            want = list_schedule_plain(order, *tensors, C)
+            before = L.count
+            got = lk.list_schedule(order, *tensors, C)
+            torch.cuda.synchronize()
+            ok = (torch.equal(got[0], want[0])
+                  and torch.equal(got[1], want[1]) and L.count == before + 1)
+            if order == "blevel":
+                prio = lk.blevel_priorities(*edges)
+                torch.cuda.synchronize()
+                ok = (ok and torch.equal(prio, want[1]) and torch.equal(
+                    prio, blevel_priorities_plain(*edges))
+                    and L.count == before + 2)
+            checks.append(dict(case=name, order=order, R=R, T=g.T, E=g.E,
+                               W=args[8].shape[1], C=C, bitwise=ok))
+            if not ok:
+                raise AssertionError(f"kernel_list_schedule {name} {order}: "
+                                     f"the kernel differs from the plain "
+                                     f"version ({checks[-1]})")
+        if name in SCHEDULE_CELLS:
+            nbytes, ops = _schedule_work(g, args)
+            bound_ms, bound_by = _bound(nbytes, ops, F32_OPS_PER_S)
+            timing.append(dict(
+                case=name, R=R, T=g.T, E=g.E, W=args[8].shape[1], C=C,
+                order="blevel", timed="cuda_events",
+                ms=cuda_time_ms(lambda: lk.list_schedule(
+                    "blevel", *tensors, C), iters=20, warmup=2),
+                priorities_ms=cuda_time_ms(
+                    lambda: lk.blevel_priorities(*edges), iters=20,
+                    warmup=2),
+                plain_ms=cuda_time_ms(lambda: list_schedule_plain(
+                    "blevel", *tensors, C), iters=2, warmup=1),
+                plain_priorities_ms=cuda_time_ms(
+                    lambda: blevel_priorities_plain(*edges),
+                    iters=2, warmup=1),
+                bytes=nbytes, ops=ops, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None))
+    emit("kernel_list_schedule", checks=len(checks),
+         all_bitwise=all(c["bitwise"] for c in checks),
+         cases=sorted(cases), timing=timing, card=CARD)
+    return dict(max_abs_err=0.0, path=timing[0], timing=timing)
+
+
 def _path_input_timing(plain_sample=16):
     """K1 on the main path's own inputs: every call of one blevel run of
     the survey_full_width cell, recorded, then checked bitwise on both
@@ -1182,16 +1359,28 @@ def _mini_t160_group():
 
 
 def _reset_launches():
-    """Zero K1's and greedy placement's launch counts: a main-path run's
-    counts are zeroed just before it and read just after."""
+    """Zero K1's, greedy placement's and the list schedule's launch
+    counts: a main-path run's counts are zeroed just before it and read
+    just after."""
     from repro_torch.kernels import (GREEDY_PLACE_LAUNCHES,
+                                     LIST_SCHEDULE_LAUNCHES,
                                      WATERFILL_LAUNCHES)
     WATERFILL_LAUNCHES.reset()
     GREEDY_PLACE_LAUNCHES.reset()
+    LIST_SCHEDULE_LAUNCHES.reset()
+
+
+# the list schedule's launches on the main-path runs, summed as each run's
+# counts are read (``_greedy_launches``)
+MAIN_PATH_SCHEDULES = [0]
 
 
 def _greedy_launches():
-    from repro_torch.kernels import GREEDY_PLACE_LAUNCHES
+    """Greedy placement's launches since ``_reset_launches``; the list
+    schedule's since then go into ``MAIN_PATH_SCHEDULES``."""
+    from repro_torch.kernels import (GREEDY_PLACE_LAUNCHES,
+                                     LIST_SCHEDULE_LAUNCHES)
+    MAIN_PATH_SCHEDULES[0] += LIST_SCHEDULE_LAUNCHES.count
     return GREEDY_PLACE_LAUNCHES.count
 
 
@@ -4204,11 +4393,13 @@ def main(argv=None):
     smi = phase_env()
     if "build" in phases:
         phase_build()
-    wf = gp = None
+    wf = gp = ls = None
     if "kernel_waterfill" in phases:
         wf = phase_kernel_waterfill()
     if "kernel_greedy_place" in phases:
         gp = phase_kernel_greedy_place()
+    if "kernel_list_schedule" in phases:
+        ls = phase_kernel_list_schedule()
     if "golden" in phases:
         phase_golden()
     if "survey_mini" in phases:
@@ -4281,6 +4472,7 @@ def main(argv=None):
         phase_simlint()
     if greedy:
         launches["greedy_place"] = sum(greedy)
+        launches["list_schedule"] = MAIN_PATH_SCHEDULES[0]
     kernels = []
     for name, res, src, replaces, lib in (
             ("waterfill", wf, "waterfill.cu",
@@ -4288,6 +4480,9 @@ def main(argv=None):
             ("greedy_place", gp, "greedy_place.cu",
              "none (the reference's placer is a fori_loop under jit, "
              "src/repro/core/vectorized/scheduling.py:541)", False),
+            ("list_schedule", ls, "list_schedule.cu",
+             "none (the reference's list schedule is fori_loops under jit, "
+             "src/repro/core/vectorized/scheduling.py:142, :201)", False),
             ("flash_attention", fa, "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:25", True),
             ("ssd", ss, "ssd.cu", "src/repro/kernels/ssd.py:24", False)):
@@ -4322,8 +4517,9 @@ def main(argv=None):
         # every kernel held against its plain version and launched on its
         # path in this run
         checked = {k["name"] for k in kernels}
-        missing = sorted({"waterfill", "greedy_place", "flash_attention",
-                          "ssd"} - (checked & set(launches)))
+        missing = sorted({"waterfill", "greedy_place", "list_schedule",
+                          "flash_attention", "ssd"}
+                         - (checked & set(launches)))
         if missing:
             raise AssertionError(
                 f"the kernels phase needs every kernel's check and path "

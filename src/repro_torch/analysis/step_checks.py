@@ -10,9 +10,10 @@ under a ``TorchDispatchMode`` that sees every ATen op, and ``sim``'s
 private drive hook hands the check the carry and the step before the
 first step runs.  The check runs that step once on copies of the
 carry, then stops the call.  The hand-written kernels (K1, greedy's
-placement) are launched through ctypes, where the mode cannot see them,
-so each wrapper is recorded as one op from its inputs to its output (on
-the CPU its plain version stands in for it, as one op too).
+placement, the list schedule) are launched through ctypes, where the
+mode cannot see them, so each wrapper is recorded as one op from its
+inputs to its output (on the CPU its plain version stands in for it, as
+one op too).
 The float64 inside ``_ops.fma32`` (the single rounding of the
 reference's contracted multiply-adds) is reported as suppressed JX103.
 
@@ -197,13 +198,15 @@ class _Tracer(TorchDispatchMode):
 
 @contextlib.contextmanager
 def _opaque_kernels(tracer):
-    """Record each call of a kernel wrapper (K1's, greedy's placement)
-    as one op (the mode cannot see a ctypes launch; on the CPU the plain
-    version's ops, and its host reads, are the kernel's stand-in, not
-    the step's)."""
+    """Record each call of a kernel wrapper (K1's, greedy's placement,
+    the list schedule's two entries) as one op (the mode cannot see a
+    ctypes launch; on the CPU the plain version's ops, and its host
+    reads, are the kernel's stand-in, not the step's)."""
     from ..kernels import greedy_place as gk
+    from ..kernels import list_schedule as lk
     from ..kernels import waterfill as wk
     inner_wf, inner_gp = wk._waterfill, gk.greedy_place
+    inner_ls, inner_lp = lk.list_schedule, lk.blevel_priorities
 
     def opaque(name, fn, inputs, *args, **kwargs):
         tracer.opaque += 1
@@ -211,7 +214,8 @@ def _opaque_kernels(tracer):
             out = fn(*args, **kwargs)
         finally:
             tracer.opaque -= 1
-        tracer.record(name, inputs, [out])
+        tracer.record(name, inputs, list(out) if isinstance(out, tuple)
+                      else [out])
         return out
 
     def waterfill_seen(src, dst, active, caps_up, caps_down,
@@ -224,6 +228,17 @@ def _opaque_kernels(tracer):
         return opaque("repro_torch::greedy_place", inner_gp, list(args),
                       *args, **kwargs)
 
+    def tensors(args):
+        return [a for a in args if torch.is_tensor(a)]
+
+    def list_schedule_seen(*args):
+        return opaque("repro_torch::list_schedule", inner_ls,
+                      tensors(args), *args)
+
+    def blevel_priorities_seen(*args):
+        return opaque("repro_torch::blevel_priorities", inner_lp,
+                      tensors(args), *args)
+
     def fma_seen(a, b, c):
         tracer.in_fma += 1
         try:
@@ -233,11 +248,14 @@ def _opaque_kernels(tracer):
 
     fma = _sim.fma32
     wk._waterfill, gk.greedy_place = waterfill_seen, greedy_place_seen
+    lk.list_schedule, lk.blevel_priorities = (list_schedule_seen,
+                                              blevel_priorities_seen)
     _sim.fma32 = fma_seen
     try:
         yield
     finally:
         wk._waterfill, gk.greedy_place = inner_wf, inner_gp
+        lk.list_schedule, lk.blevel_priorities = inner_ls, inner_lp
         _sim.fma32 = fma
 
 

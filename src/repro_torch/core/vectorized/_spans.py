@@ -9,7 +9,10 @@ loop (``count``): ``place_iters`` (the greedy placer's loop
 iterations) and ``slot_busy`` (download slots occupied in live rows,
 summed over the steps), both counted on the device inside the step;
 ``edge_lanes`` and ``valid_edges`` (the bucket's padded and real input
-edges, times the rows).  ``PEAKS`` hold a largest value, not a sum:
+edges, times the rows); ``schedule_launches`` (the launches of the
+static schedule's kernel, ``kernels.list_schedule``, in the call's
+``schedule`` span: one on a card for a list scheduler or greedy, none on
+the CPU).  ``PEAKS`` hold a largest value, not a sum:
 ``frontier_peak`` (the fullest candidate-flow frontier of a live row
 in any step, counted on the device) and ``flow_cap`` (that frontier's
 cap); their odometer keeps the largest a call has reported.
@@ -72,7 +75,8 @@ MAX_CALLS = 4096
 
 GRAPH_EVENTS = {"calls": 0, "captures": 0, "replays": 0, "polls": 0,
                 "place_iters": 0, "slot_busy": 0, "edge_lanes": 0,
-                "valid_edges": 0, "frontier_peak": 0, "flow_cap": 0}
+                "valid_edges": 0, "frontier_peak": 0, "flow_cap": 0,
+                "schedule_launches": 0}
 # the counters that hold a largest value, not a sum
 PEAKS = ("frontier_peak", "flow_cap")
 # every span closed in the process: {name: [count, seconds]}; a summed

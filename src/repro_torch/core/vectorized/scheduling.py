@@ -6,7 +6,11 @@ Every function takes a ``BucketedGraphSpec`` whose leaves are tensors
 with a leading row axis ``[R, ...]`` (one simulation per row) and
 per-row estimates, bandwidths, seeds and cluster vectors.  The
 sequential sweeps of the reference (``fori_loop`` over the T tasks)
-become Python loops over tensor operations on all rows at once.
+become Python loops over tensor operations on all rows at once; on the
+card the list schedules (``blevel``, ``tlevel``, ``mcp``) and greedy's
+priorities are one kernel instead (``repro_torch.kernels.list_schedule``,
+whose plain versions are ``list_schedule_plain`` and
+``blevel_priorities_plain`` here).
 
 ``VEC_SCHEDULERS`` maps each name to its kind:
 
@@ -140,14 +144,17 @@ def bucket_blevel(bspec, est_dur):
     topological order by construction, so one reverse sweep suffices.
     Invalid edges are masked out, so padded tasks keep b-level 0."""
     g = graph_view(bspec)
-    T = g.T
-    est_dur = est_dur.float()
-    bl = torch.zeros(g.R, T, dtype=torch.float32, device=g.device)
-    if g.E == 0:
+    return _blevel(g.e_task, g.prod_e, g.edge_valid, est_dur.float())
+
+
+def _blevel(e_task, prod_e, edge_valid, est_dur):
+    R, T = est_dur.shape
+    bl = torch.zeros(R, T, dtype=torch.float32, device=est_dur.device)
+    if e_task.shape[1] == 0:
         return bl + est_dur
     for t in range(T - 1, -1, -1):
-        mask = (g.prod_e == t) & g.edge_valid
-        child = torch.where(mask, take(bl, g.e_task), 0.0).amax(dim=1)
+        mask = (prod_e == t) & edge_valid
+        child = torch.where(mask, take(bl, e_task), 0.0).amax(dim=1)
         bl[:, t] = est_dur[:, t] + child
     return bl
 
@@ -156,15 +163,18 @@ def bucket_tlevel(bspec, est_dur):
     """t-level (earliest possible start ignoring comm costs) from
     estimated durations; forward sweep over the id-topological order."""
     g = graph_view(bspec)
-    T = g.T
-    est_dur = est_dur.float()
-    tl = torch.zeros(g.R, T, dtype=torch.float32, device=g.device)
-    if g.E == 0:
+    return _tlevel(g.e_task, g.prod_e, g.edge_valid, est_dur.float())
+
+
+def _tlevel(e_task, prod_e, edge_valid, est_dur):
+    R, T = est_dur.shape
+    tl = torch.zeros(R, T, dtype=torch.float32, device=est_dur.device)
+    if e_task.shape[1] == 0:
         return tl
-    par_dur = take(est_dur, g.prod_e)
+    par_dur = take(est_dur, prod_e)
     for t in range(T):
-        mask = (g.e_task == t) & g.edge_valid
-        tl[:, t] = torch.where(mask, take(tl, g.prod_e) + par_dur,
+        mask = (e_task == t) & edge_valid
+        tl[:, t] = torch.where(mask, take(tl, prod_e) + par_dur,
                                0.0).amax(dim=1)
     return tl
 
@@ -177,6 +187,31 @@ def rank_priorities(bl):
     ranks = (T - torch.arange(T, device=bl.device)).float()
     return torch.zeros(R, T, dtype=torch.float32, device=bl.device) \
         .scatter_(1, order, ranks.expand(R, T).contiguous())
+
+
+# the orders of the static list schedulers, each named by the level its
+# ascending sort key is made of (ties go to the smaller id)
+LIST_ORDERS = ("blevel", "tlevel", "mcp")
+
+
+def _order_key(order, e_task, prod_e, edge_valid, est_dur):
+    """``f32[R, T]``: the sort key of ``order``: -b-level (blevel/HLFET),
+    t-level (tlevel/SCFET), ALAP = CP - b-level (simplified MCP)."""
+    if order == "tlevel":
+        return _tlevel(e_task, prod_e, edge_valid, est_dur)
+    bl = _blevel(e_task, prod_e, edge_valid, est_dur)
+    if order == "blevel":
+        return -bl
+    # padded tasks have b-level 0, so the unmasked max is the true CP
+    return bl.amax(dim=1, keepdim=True) - bl
+
+
+def blevel_priorities_plain(e_task, prod_e, edge_valid, est_dur):
+    """The plain version of ``kernels.list_schedule.blevel_priorities``:
+    greedy's priorities, ``rank_priorities(bucket_blevel(...))``, from
+    the edges' consumers and producers (``i64[R, E]``), their validity
+    (``bool[R, E]``) and the estimated durations (``f32[R, T]``)."""
+    return rank_priorities(_blevel(e_task, prod_e, edge_valid, est_dur))
 
 
 def _initial_slots(cores, C):
@@ -197,15 +232,68 @@ def _commit(slots, rows, w, ct, finish):
     slots[rows, w] = torch.sort(row, dim=1).values
 
 
-def _make_bucket_list_scheduler(n_workers, cores, order_fn, max_cores=None):
-    """Shared static list-scheduling machinery: commit tasks in the order
-    ``order_fn(graph, est_dur) -> i64[R, T]`` (rank -> task id), each to
-    the earliest-start worker over per-core free times with uncontended
-    transfer costs.
+def list_schedule_plain(order, e_task, prod_e, e_obj, edge_valid, cpus,
+                        est_dur, est_size, bandwidth, cores, max_cores):
+    """The plain version of ``kernels.list_schedule.list_schedule``: the
+    static list schedule of ``order`` (``LIST_ORDERS``).  Tasks are
+    committed in ascending order of its key (ties: smaller id), each to
+    the earliest-start worker over per-core free times (``max_cores``
+    slots a worker) with uncontended transfer costs (the estimated size
+    of the edge's object over the row's bandwidth).
+
+    Inputs: the edges' consumers, producers and objects (``i64[R, E]``)
+    and validity (``bool[R, E]``), the tasks' cores (``i64[R, T]``) and
+    estimated durations (``f32[R, T]``), the objects' estimated sizes
+    (``f32[R, O]``), the rows' bandwidths (``f32[R]``) and the workers'
+    cores (``i64[R, W]``).  Returns ``(assignment i64[R, T], priority
+    f32[R, T])``, the priority being T - the task's rank."""
+    R, T = est_dur.shape
+    W = cores.shape[1]
+    dev = est_dur.device
+    by_rank = torch.sort(_order_key(order, e_task, prod_e, edge_valid,
+                                    est_dur), dim=1, stable=True).indices
+    slots = _initial_slots(cores, max_cores)
+    xfer = take(est_size, e_obj) / bandwidth[:, None]
+    w_ids = torch.arange(W, device=dev)
+    rows = torch.arange(R, device=dev)
+    aw = torch.zeros(R, T, dtype=torch.int64, device=dev)
+    fin = torch.zeros(R, T, dtype=torch.float32, device=dev)
+    prio = torch.zeros(R, T, dtype=torch.float32, device=dev)
+    for r in range(T):
+        t = by_rank[:, r]
+        ct = cpus[rows, t]
+        if e_task.shape[1]:
+            pw = take(aw, prod_e)                  # parents placed earlier
+            pf = take(fin, prod_e)
+            ready_ew = pf[:, :, None] + torch.where(
+                pw[:, :, None] == w_ids, 0.0, xfer[:, :, None])
+            mine = (e_task == t[:, None]) & edge_valid
+            data_ready = torch.where(mine[:, :, None], ready_ew,
+                                     0.0).amax(dim=1)
+        else:
+            data_ready = torch.zeros(R, W, device=dev)
+        core_ready = slots[rows, :, ct - 1]        # cpus-th smallest
+        est = torch.maximum(core_ready, data_ready)
+        est = torch.where(cores >= ct[:, None], est, INF)
+        w = est.argmin(dim=1)                      # ties: smallest id
+        finish = est[rows, w] + est_dur[rows, t]
+        _commit(slots, rows, w, ct, finish)
+        aw[rows, t] = w
+        fin[rows, t] = finish
+        prio[rows, t] = float(T - r)
+    return aw, prio
+
+
+def _make_bucket_list_scheduler(n_workers, cores, order, max_cores=None):
+    """Shared static list-scheduling machinery: commit tasks in
+    ``order`` (``LIST_ORDERS``), each to the earliest-start worker over
+    per-core free times with uncontended transfer costs, in one call of
+    ``kernels.list_schedule.list_schedule`` (a kernel launch on the card,
+    ``list_schedule_plain`` on the CPU).
 
     Returns ``schedule(bspec, est_durations, est_sizes, bandwidth, seed,
     cores) -> (assignment i64[R, T], priority f32[R, T])``."""
-    W = n_workers
+    from ...kernels import list_schedule as kernel
     cores_default = _resolve_cores(n_workers, cores)
     C = _static_max_cores(cores_default, max_cores)
 
@@ -213,76 +301,32 @@ def _make_bucket_list_scheduler(n_workers, cores, order_fn, max_cores=None):
                  cores=None):
         del seed
         g = graph_view(bspec)
-        R, T, dev = g.R, g.T, g.device
+        R, dev = g.R, g.device
         cores_t = _cores_arg(cores, cores_default, R, dev)
-        est_dur = est_dur.float()
         bandwidth = torch.as_tensor(bandwidth, device=dev).float()
         bandwidth = bandwidth.expand(R) if bandwidth.dim() == 0 else bandwidth
-        order = order_fn(g, est_dur)
-        slots = _initial_slots(cores_t, C)
-        xfer = take(est_size.float(), g.e_obj) / bandwidth[:, None]
-        w_ids = torch.arange(W, device=dev)
-        rows = torch.arange(R, device=dev)
-        aw = torch.zeros(R, T, dtype=torch.int64, device=dev)
-        fin = torch.zeros(R, T, dtype=torch.float32, device=dev)
-        prio = torch.zeros(R, T, dtype=torch.float32, device=dev)
-        for r in range(T):
-            t = order[:, r]
-            ct = g.cpus[rows, t]
-            if g.E:
-                pw = take(aw, g.prod_e)            # parents placed earlier
-                pf = take(fin, g.prod_e)
-                ready_ew = pf[:, :, None] + torch.where(
-                    pw[:, :, None] == w_ids, 0.0, xfer[:, :, None])
-                mine = (g.e_task == t[:, None]) & g.edge_valid
-                data_ready = torch.where(mine[:, :, None], ready_ew,
-                                         0.0).amax(dim=1)
-            else:
-                data_ready = torch.zeros(R, W, device=dev)
-            core_ready = slots[rows, :, ct - 1]    # cpus-th smallest
-            est = torch.maximum(core_ready, data_ready)
-            est = torch.where(cores_t >= ct[:, None], est, INF)
-            w = est.argmin(dim=1)                  # ties: smallest id
-            finish = est[rows, w] + est_dur[rows, t]
-            _commit(slots, rows, w, ct, finish)
-            aw[rows, t] = w
-            fin[rows, t] = finish
-            prio[rows, t] = float(T - r)
-        return aw, prio
+        return kernel.list_schedule(order, g.e_task, g.prod_e, g.e_obj,
+                                    g.edge_valid, g.cpus, est_dur.float(),
+                                    est_size.float(), bandwidth, cores_t, C)
 
     return schedule
 
 
 def make_bucket_blevel_scheduler(n_workers, cores, max_cores=None):
     """blevel/HLFET: decreasing estimated b-level (ties: smaller id)."""
-    def order_fn(g, est_dur):
-        return torch.sort(-bucket_blevel(g, est_dur), dim=1,
-                          stable=True).indices
-
-    return _make_bucket_list_scheduler(n_workers, cores, order_fn,
+    return _make_bucket_list_scheduler(n_workers, cores, "blevel",
                                        max_cores)
 
 
 def make_bucket_tlevel_scheduler(n_workers, cores, max_cores=None):
     """tlevel/SCFET: ascending estimated t-level (ties: smaller id)."""
-    def order_fn(g, est_dur):
-        return torch.sort(bucket_tlevel(g, est_dur), dim=1,
-                          stable=True).indices
-
-    return _make_bucket_list_scheduler(n_workers, cores, order_fn,
+    return _make_bucket_list_scheduler(n_workers, cores, "tlevel",
                                        max_cores)
 
 
 def make_bucket_mcp_scheduler(n_workers, cores, max_cores=None):
     """Simplified MCP: ascending ALAP = CP - blevel (ties: smaller id)."""
-    def order_fn(g, est_dur):
-        bl = bucket_blevel(g, est_dur)
-        # padded tasks have b-level 0, so the unmasked max is the true CP
-        cp = bl.amax(dim=1, keepdim=True)
-        return torch.sort(cp - bl, dim=1, stable=True).indices
-
-    return _make_bucket_list_scheduler(n_workers, cores, order_fn,
-                                       max_cores)
+    return _make_bucket_list_scheduler(n_workers, cores, "mcp", max_cores)
 
 
 def make_bucket_etf_scheduler(n_workers, cores, max_cores=None):

@@ -33,7 +33,9 @@ hatches ``flow_slots=False`` (one flow per input edge) and
   batching, a ``decision_delay`` before assignments reach the workers,
   and imode estimates (``est_durations``/``est_sizes``, true values once
   finished); static schedules (``blevel``/``tlevel``/``mcp``/``etf``/
-  ``random``) are computed once from the t=0 estimates, the dynamic
+  ``random``) are computed once from the t=0 estimates (on a card the
+  list schedules ``blevel``/``tlevel``/``mcp``, and greedy's priorities,
+  in one launch of ``kernels.list_schedule`` a call), the dynamic
   ``greedy`` placer runs at every invocation;
 * downloads come from the producing worker, deduplicated per (object,
   destination) (the static path knows every key's representative edge
@@ -71,8 +73,7 @@ from ._ops import (NEG, as_rows, fma32, scatter_count, scatter_max,
 from ._spans import (GRAPH_EVENTS, PLACE, POLL, REPLAY, STEP, count,
                      drive, prepared, span)
 from .scheduling import (VEC_SCHEDULERS, _cores_arg, _resolve_cores,
-                         bucket_blevel, edge_table, graph_view,
-                         make_bucket_scheduler, rank_priorities)
+                         edge_table, graph_view, make_bucket_scheduler)
 from .specs import (as_bucketed, bucket_shape, encode_graph,
                     frontier_caps_for, pad_spec, pad_to, spec_rows,
                     stack_specs)
@@ -1034,6 +1035,7 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
     wf = None if simple else _make_waterfill(waterfill_impl, dev, graph)
     S = W * DOWNLOAD_SLOTS
     dynamic_sched = VEC_SCHEDULERS[scheduler] == "dynamic"
+    from ...kernels import list_schedule as schedule_kernel
     if dynamic_sched:
         from ...kernels import greedy_place as placement
         static_schedule = None
@@ -1085,9 +1087,12 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
         caps = bandwidth_[:, None].expand(R, W).contiguous()
         granule = _granule(dev)
 
+        # the schedule's launches, counted into this call's drive record
+        schedules = schedule_kernel.LAUNCHES.count
         if dynamic_sched:
             with span("schedule", dev):
-                greedy_prio = rank_priorities(bucket_blevel(g, est_dur))
+                greedy_prio = schedule_kernel.blevel_priorities(
+                    e_task, prod_e, edge_valid, est_dur)
             p_worker0 = torch.full((R, T), -1, dtype=torch.int64, device=dev)
             p_prio0 = torch.zeros(R, T, device=dev)
             p_time0 = torch.full((R, T), INF, device=dev)
@@ -1106,6 +1111,7 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
             p_worker0 = torch.where(task_valid, aw0, -1)
             p_prio0 = prio0
             p_time0 = torch.where(task_valid, delay[:, None], INF)
+        schedules = schedule_kernel.LAUNCHES.count - schedules
 
         CF, CT = _frontier_caps(frontier_caps, T, O, E)
         # the flow path's counters (``_count_flows``): occupied slots
@@ -1460,7 +1466,8 @@ def make_bucket_dynamic_simulator(n_workers: int, cores,
 
         tallies = dict(slot_busy=flow_tally[0], frontier_peak=flow_tally[1],
                        flow_cap=CF if carried_keys else 0,
-                       edge_lanes=R * E, valid_edges=edge_valid.sum())
+                       edge_lanes=R * E, valid_edges=edge_valid.sum(),
+                       schedule_launches=schedules)
         if dynamic_sched:
             tallies["place_iters"] = tally[0]
         st = _drive(st, body if use_frontier else body_edges,

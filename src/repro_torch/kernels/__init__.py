@@ -15,13 +15,20 @@ version.  Sources live in ``csrc/``; ``_build`` compiles them with
   event step, transfer costs and the sequential choice in one kernel
   (replaces no Pallas kernel: the reference's ``fori_loop`` under
   ``jit``); call ``repro_torch.kernels.greedy_place.greedy_place``.
+* ``list_schedule`` — the static list schedule of ``blevel``, ``tlevel``
+  and ``mcp`` (level, order and placement) and greedy's priorities, one
+  kernel a simulator call (replaces no Pallas kernel: the reference's
+  ``fori_loop``s under ``jit``); call
+  ``repro_torch.kernels.list_schedule.list_schedule`` or
+  ``blevel_priorities``.
 
 ``ops.attention`` and ``ops.ssd`` dispatch K2 and K3 by device; ``ref``
 holds their plain versions."""
 from .flash_attention import LAUNCHES as FLASH_ATTENTION_LAUNCHES
 from .greedy_place import LAUNCHES as GREEDY_PLACE_LAUNCHES
+from .list_schedule import LAUNCHES as LIST_SCHEDULE_LAUNCHES
 from .ssd import LAUNCHES as SSD_LAUNCHES
 from .waterfill import LAUNCHES as WATERFILL_LAUNCHES
 
 __all__ = ["FLASH_ATTENTION_LAUNCHES", "GREEDY_PLACE_LAUNCHES",
-           "SSD_LAUNCHES", "WATERFILL_LAUNCHES"]
+           "LIST_SCHEDULE_LAUNCHES", "SSD_LAUNCHES", "WATERFILL_LAUNCHES"]

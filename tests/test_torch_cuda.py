@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels (the
 waterfill K1, flash attention K2 on each of its routes and head dims,
-the SSD scan K3 whole and each of its three kernels alone) against
+the SSD scan K3 whole and each of its three kernels alone, greedy's
+placement, the static list schedule) against
 their plain PyTorch versions, their launch counters and checks, the
 dynamic and static simulators and the LM serving path through the
 kernels against the plain versions, the gradients of K2 and K3 (the
@@ -163,6 +164,107 @@ def test_greedy_place_counts_launches_and_checks_inputs(dev):
     with pytest.raises(ValueError, match="exceed"):
         greedy_place(*wide)
     assert GREEDY_PLACE_LAUNCHES.count == before + 1
+
+
+# the list schedule's card cases: (graphs, clusters, rows, bucket shape);
+# the benchmark cells' shapes, a single-row request of each pegasus
+# bucket, irw's T160 bucket at E 2368 and a T2048 bucket
+LIST_CASES = {
+    "t512_r1800_w32": (("fork1", "size_stairs", "grid", "fern"),
+                       ("32x4", "32x16"), 1800, (512, 416, 704)),
+    "t160_r120_w32": (("merge_triplets",), ("32x4", "32x16"), 120,
+                      (160, 128, 128)),
+    "t160_r1_w16": (("montage",), ("16x8",), 1, (160, 160, 224)),
+    "t512_r1_w16": (("epigenomics",), ("16x4",), 1, (512, 320, 320)),
+    "irw_t160_r360_w32": (("crossv", "fastcrossv", "mapreduce48"),
+                          ("32x4", "32x16"), 360, (160, 2368, 2368)),
+    "t2048_r8_w32": (("random2048",), ("32x4", "1x8+4x2"), 8,
+                     (2048, 2528, 2720)),
+}
+
+
+def list_inputs(case, dev, seed=0):
+    """``test_torch_list_schedule.schedule_inputs`` of a ``LIST_CASES``
+    case on ``dev``: ``(g, args)``."""
+    import test_torch_list_schedule as tl
+    graphs, clusters, R, shape = LIST_CASES[case]
+    return tl.schedule_inputs(graphs, clusters, R, seed, device=dev,
+                              shape=shape)
+
+
+@pytest.mark.parametrize("order", ["blevel", "tlevel", "mcp"])
+@pytest.mark.parametrize("case", sorted(LIST_CASES))
+def test_list_schedule_kernel_equals_plain_version_bitwise(dev, case,
+                                                           order):
+    """The kernel's assignment and priorities equal the plain version's
+    on the card, bit for bit, and so do greedy's priorities alone (the
+    ``blevel`` ones); each call is one launch."""
+    from repro_torch.core.vectorized.scheduling import (
+        blevel_priorities_plain, list_schedule_plain)
+    from repro_torch.kernels import LIST_SCHEDULE_LAUNCHES as L
+    from repro_torch.kernels.list_schedule import (blevel_priorities,
+                                                   list_schedule)
+    g, args = list_inputs(case, dev, seed=len(case))
+    *tensors, C = args
+    want = list_schedule_plain(order, *tensors, C)
+    before = dict(L.routes)
+    got = list_schedule(order, *tensors, C)
+    torch.cuda.synchronize()
+    assert L.routes["place"] == before["place"] + 1
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    if order == "blevel":
+        prio = blevel_priorities(g.e_task, g.prod_e, g.edge_valid,
+                                 tensors[5])
+        torch.cuda.synchronize()
+        assert L.routes["priorities"] == before["priorities"] + 1
+        assert torch.equal(prio, want[1])
+        assert torch.equal(prio, blevel_priorities_plain(
+            g.e_task, g.prod_e, g.edge_valid, tensors[5]))
+
+
+def test_list_schedule_checks_its_inputs_on_the_card(dev):
+    from repro_torch.kernels import LIST_SCHEDULE_LAUNCHES as L
+    from repro_torch.kernels.list_schedule import list_schedule
+    _, args = list_inputs("t160_r1_w16", dev)
+    *tensors, C = args
+    before = L.count
+    with pytest.raises(ValueError, match="max_cores"):
+        list_schedule("blevel", *tensors, 33)
+    bad = list(tensors)
+    bad[8] = torch.zeros(1, 513, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="workers"):
+        list_schedule("blevel", *bad, C)
+    bad = list(tensors)
+    bad[6] = tensors[6].cpu()
+    with pytest.raises(ValueError, match="several devices"):
+        list_schedule("blevel", *bad, C)
+    assert L.count == before
+
+
+@pytest.mark.parametrize("sched", ["blevel", "tlevel", "mcp", "greedy"])
+def test_each_simulator_call_launches_the_schedule_once(dev, sched):
+    """A grid runner call launches the schedule's kernel once a
+    simulator call, and each drive record counts its own launch."""
+    import time
+    from repro_torch.core import MiB
+    from repro_torch.core.graphs import encode_graph_batch, survey_names
+    from repro_torch.core.vectorized import make_grid_runner, span_log
+    from repro_torch.kernels import LIST_SCHEDULE_LAUNCHES as L
+    encoded, groups = encode_graph_batch(survey_names(1), bucket=True)
+    grp = groups[0]
+    run = make_grid_runner([encoded[n] for n in grp.names], sched, 8,
+                           [4] * 8, shape=grp.shape, batch=grp.batch,
+                           device=dev)
+    before = dict(L.routes)
+    t0 = time.perf_counter()
+    res = run([dict(bandwidth=64 * MiB)])
+    recs, _ = span_log(t0, time.perf_counter())
+    assert bool(res.ok.all())
+    drives = [r for r in recs if r["name"] == "drive"]
+    mode = "priorities" if sched == "greedy" else "place"
+    assert L.routes[mode] - before[mode] == len(drives) >= 1
+    assert all(r["counters"]["schedule_launches"] == 1 for r in drives)
 
 
 @pytest.mark.parametrize("route", ["warp", "block"])
@@ -466,6 +568,7 @@ def test_spans_of_a_runner_call_on_the_card(dev, sched):
         d["sums"].get(n, (0, 0.0))[1] for n in ("replay", "poll"))
     assert inside <= loop["end"] - loop["start"]
     assert 0.0 < names["schedule"]["device_s"] < 60.0
+    assert c["schedule_launches"] == 1
 
 ATTN = [  # B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len
     (2, 25, 5, 64, 80, 64, True, 16, 64),
